@@ -1,12 +1,12 @@
-"""On-chip GICP throughput: batched plane-to-plane solves on a curved scene.
+"""GICP throughput: batched plane-to-plane solves on a curved scene.
 
 GICP's per-iteration cost over pt2pl is the (n, 3, 3) covariance algebra
-(inv3 + two einsums) — pure VPU work that should fuse around the same
+(inv3 + two einsums) — elementwise work that should fuse around the same
 (n, m) distance matmul, so the expected cost ratio vs pt2pl is modest.
 Metric: registrations/s at B=64, n=m=600, plus the cost ratio vs an
 identically-shaped pt2pt solve.
 
-Run: timeout 590 python benchmarks/exp_gicp.py
+Run: python benchmarks/exp_gicp.py
 """
 
 import json
@@ -33,7 +33,7 @@ def main():
     from dicp_tpu.gicp import register_gicp
     from dicp_tpu.registration import register
 
-    print(f"backend={jax.default_backend()} dev={jax.devices()[0]}",
+    print(f"dev={jax.devices()[0]}",
           file=sys.stderr, flush=True)
 
     B, n = 64, 600

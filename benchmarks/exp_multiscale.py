@@ -1,12 +1,12 @@
-"""On-chip A/B: multiscale pyramid vs single-scale full-res at 100k points.
+"""A/B: multiscale pyramid vs single-scale full-res at 100k points.
 
 The pyramid's claim (dicp_tpu/multiscale.py): from a FAR initialization the
-full-resolution solver spends many 8-ms GN iterations walking to the basin;
-a coarse voxel level walks the same distance in sub-ms iterations, so the
+full-resolution solver spends many costly GN iterations walking to the
+basin; a coarse voxel level walks the same distance in cheap iterations, so the
 final full-res level only polishes.  Both paths must land on the same pose
 (f32 solver floor); the metric is ms/registration at equal accuracy.
 
-Run: timeout 590 python benchmarks/exp_multiscale.py
+Run: python benchmarks/exp_multiscale.py
 """
 
 import json
@@ -34,14 +34,14 @@ def main():
     from dicp_tpu.multiscale import ScaleLevel, register_multiscale
     from dicp_tpu.registration import register
 
-    print(f"backend={jax.default_backend()} dev={jax.devices()[0]}",
+    print(f"dev={jax.devices()[0]}",
           file=sys.stderr, flush=True)
 
     n = 100_000
     target = jnp.asarray(_make_scene(n))
     # FAR init (~4x the suite's large_cloud offset): the regime multiscale
-    # is for.  Source generated host-side in f64 (bf16-matmul trap,
-    # BENCH.md methodology).
+    # is for.  Source generated host-side in f64 (a device matmul at
+    # reduced default precision would corrupt the ground truth).
     xi = np.array([0.8, -0.5, 0.2, 0.05, -0.08, 0.12], np.float64)
     T_np = np.asarray(se3.vec2tran(jnp.asarray(xi))).astype(np.float64)
     source = jnp.asarray((np.asarray(target[:, :3], np.float64) @ T_np[:3, :3].T

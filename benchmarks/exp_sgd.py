@@ -1,4 +1,4 @@
-"""On-chip SGD-ICP: mini-batch stochastic registration vs the full solver.
+"""SGD-ICP: mini-batch stochastic registration vs the full solver.
 
 SGD-ICP's pitch (arXiv:1907.09133) is O(k·m) per iteration instead of
 O(n·m) — it pays off when the correspondence pass dominates, i.e. at
@@ -7,9 +7,9 @@ large n.  Two comparisons, both to the same accuracy target:
 * mid scale (n = m = 20k): stochastic-GN @ k=1024 vs the full register()
   (auto backend) — wall-clock per converged registration + transform err.
 * large scale (n = m = 100k): stochastic-GN @ k=2048 vs the full solver's
-  cluster path (BENCH.md: 8.15 ms/GN-iteration at this size).
+  cluster path.
 
-Run: timeout 590 python benchmarks/exp_sgd.py
+Run: python benchmarks/exp_sgd.py
 """
 
 import json
@@ -44,7 +44,7 @@ def main():
     from dicp_tpu.registration import register
     from dicp_tpu.sgd_icp import register_sgd
 
-    print(f"backend={jax.default_backend()} dev={jax.devices()[0]}",
+    print(f"dev={jax.devices()[0]}",
           file=sys.stderr, flush=True)
 
     xi = np.array([0.1, -0.08, 0.05, 0.04, -0.03, 0.05], np.float64)

@@ -1,13 +1,10 @@
-"""Shared truthful-timing harness for the remote-attached TPU.
+"""Timing helper shared by the benchmark scripts.
 
-The implementation now lives in :mod:`dicp_tpu.utils.timing` (it is public
-API — ``utils.profiling.benchmark`` refuses to report client wall-clock as
-device time on remote backends and points here).  This module re-exports it
-for the benchmark scripts.  See BENCH.md for the methodology.
+Re-exports :func:`dicp_tpu.utils.timing.chained_rate`.
 """
 
 from __future__ import annotations
 
-from dicp_tpu.utils.timing import chained_rate, device_timing_is_trustworthy
+from dicp_tpu.utils.timing import chained_rate
 
-__all__ = ["chained_rate", "device_timing_is_trustworthy"]
+__all__ = ["chained_rate"]

@@ -1,7 +1,7 @@
-"""dicp_tpu — TPU-native differentiable point-cloud registration & LiDAR odometry.
+"""dicp_tpu — differentiable point-cloud registration & LiDAR odometry in JAX.
 
 A from-scratch JAX/XLA/Pallas framework with the full capability surface of
-utiasASRL/dICP (see SURVEY.md), redesigned TPU-first:
+utiasASRL/dICP (see SURVEY.md), redesigned for accelerators:
 
 * :mod:`dicp_tpu.registration` — jitted batched Gauss-Newton ICP
   (lax.scan / lax.while_loop drivers, pt2pt & pt2pl, 2-D & 3-D, robust

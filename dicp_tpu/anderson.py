@@ -9,10 +9,10 @@ exceeds the last accepted one is discarded and replaced by the plain GN
 step, so the worst case degrades to ordinary ICP (one wasted evaluation
 per rejection) while well-behaved problems converge in substantially
 fewer iterations.  That matters here because the per-iteration cost is
-dispatch-bound on small pairs (~110 us) and correspondence-bound at 100k
-scale (~8 ms) — iterations saved are wall-clock saved (BENCH.md).
+dispatch-bound on small pairs and correspondence-bound at 100k scale —
+iterations saved are wall-clock saved.
 
-Design notes (TPU-first):
+Design notes:
 - one ``lax.while_loop``; the mixing history lives in fixed (N, m, 6)
   buffers; every branch is a ``where`` mask, so batch elements accelerate,
   reject, and converge independently (batch == serial still holds).
@@ -22,7 +22,7 @@ Design notes (TPU-first):
 - acceleration is for *inference* (the reference's differentiable path
   unrolls its own graph; use :mod:`dicp_tpu.ift` for gradients — the IFT
   backward only needs the fixed point, so its forward could use this
-  driver; kept separate until profiled on chip).
+  driver; kept separate until profiled on the GPU).
 
 No reference counterpart (the reference runs plain GN, dICP/ICP.py:132);
 this is a capability addition from the retrieved technique papers.

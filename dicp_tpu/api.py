@@ -2,7 +2,7 @@
 
 Mirrors the reference's public surface (dICP/ICP.py:14-511) so a dICP user
 can switch with only an import change, while the compute path underneath is
-the jitted TPU-native core in :mod:`dicp_tpu.registration`.
+the jitted core in :mod:`dicp_tpu.registration`.
 
 Input normalization (the reference's ``batch_size_handling``,
 dICP/ICP.py:305-511) runs eagerly with jnp ops: every ragged-list element
@@ -258,15 +258,15 @@ class ICP:
     """
 
     def __init__(self, config_path=None, icp_type="pt2pl", max_iterations=100,
-                 tolerance=1e-12, differentiable=True, **tpu_kwargs):
-        """``tpu_kwargs``: TPU-native :class:`ICPConfig` knobs with no
+                 tolerance=1e-12, differentiable=True, **solver_kwargs):
+        """``solver_kwargs``: :class:`ICPConfig` knobs with no
         reference counterpart (e.g. ``nn_method='cluster'``,
         ``batch_chunk=1024``, ``collect_histories=False``,
         ``cluster_probes=...``) passed through to the solver config."""
         self._base_cfg = config_from_yaml(
             config_path, icp_type=icp_type, max_iterations=max_iterations,
             tolerance=tolerance, differentiable=differentiable).with_(
-            **tpu_kwargs)
+            **solver_kwargs)
         self.config = load_yaml_config(config_path)  # raw-dict attribute parity
         # Mutable attributes for reference-style attribute pokes
         # (tests/test_ICP_inputs.py:263 sets source_zeroes_are_pad directly).

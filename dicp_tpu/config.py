@@ -1,4 +1,4 @@
-"""Configuration for the TPU-native ICP engine.
+"""Configuration for the ICP engine.
 
 The reference reads one YAML file at construction time (dICP/ICP.py:16-27,
 config/dICP_config.yaml:1-20).  Here the canonical configuration object is a
@@ -11,13 +11,35 @@ the reference's exact schema is provided for drop-in compatibility.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os.path as osp
 from typing import Optional
 
-import yaml
-
 DEFAULT_CONFIG_PATH = osp.join(osp.dirname(osp.abspath(__file__)), "configs", "dicp_config.yaml")
+
+# The parsed form of configs/dicp_config.yaml (the reference's schema and
+# defaults), so the default configuration needs no YAML parser; a test pins
+# the two equal.
+DEFAULT_CONFIG = {
+    "dICP": {
+        "parameters": {
+            "tanh_steepness": 5.0,
+            "target_pad_val": 1000,
+            "source_zeroes_are_pad": False,
+            "const_iter": False,
+        },
+        "functionality": {
+            "gumbel": False,
+            "gumbel_eps": 1.0e-10,
+            "gumbel_tau": 0.1,
+        },
+        "logging": {
+            "verbose": False,
+            "matched_ratio_thresh": 0.0,
+        },
+    },
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,7 +47,7 @@ class ICPConfig:
     """Static solver configuration.
 
     Field semantics mirror the reference's constructor and YAML keys
-    (dICP/ICP.py:30-44, config/dICP_config.yaml).  Extra TPU-specific knobs:
+    (dICP/ICP.py:30-44, config/dICP_config.yaml).  Extra knobs:
     ``tikhonov`` (normal-equation damping; the reference hardcodes 1e-12 at
     dICP/ICP.py:200 which is below float32 resolution of the problem — None
     auto-selects by dtype), ``driver`` (scan = differentiable fixed-bound
@@ -55,7 +77,7 @@ class ICPConfig:
     verbose: bool = False
     match_ratio_thresh: float = 0.0
 
-    # TPU-native knobs (no reference counterpart)
+    # knobs with no reference counterpart
     tikhonov: Optional[float] = None
     driver: str = "auto"  # 'auto' | 'scan' | 'while'
     remat: bool = False
@@ -67,69 +89,46 @@ class ICPConfig:
     use_pallas_nn: Optional[bool] = None
     # Correspondence search backend:
     #   'dense'   brute-force (N, n, m) distance matrix (XLA)
-    #   'pallas'  tiled brute-force kernel, no (n, m) materialization
+    #   'pallas'  tiled brute force, no (n, m) materialization
+    #             (knn.nn_bruteforce: the Triton kernel on GPU)
     #   'cluster' Hilbert cluster-pruned exact search (ops/cluster_knn) —
     #             index built ONCE per solve (the target is loop-constant);
     #             per-iteration cost O(n * probes * group) instead of O(n*m)
-    #   'auto'    dense small, pallas mid, cluster for large targets
+    #   'auto'    the platform's rule in dicp_tpu.backend.nn_method
     # use_pallas_nn (legacy) maps True->'pallas', False->'dense' when
     # nn_method is 'auto'.
     nn_method: str = "auto"  # 'auto' | 'dense' | 'pallas' | 'cluster'
-    # Measured on-chip sweet spot (100k x 100k): g=128/P=32 -> 12 ms,
-    # 99.98% agreement with brute force, 99.3% certified-exact (BENCH.md).
+    # Group size and probe count of the cluster index.  Chosen before the
+    # move to the H100; awaiting re-measurement there.
     cluster_group: int = 128
     cluster_probes: int = 32
     # In-solver exactness escalation: brute-force up to this many
     # UNCERTIFIED cluster queries per iteration against the full target, so
     # default-config correspondences match brute force exactly (the
     # reference is exact, dICP/nn.py:32-38).  None = auto budget
-    # (n/64, clamped to [256, 4096] — measured uncertified fraction is
-    # 0.02-0.7% at 100k, far below n/64); 0 disables (fastest, results may
-    # be inexact for ~0.02% of queries).
+    # (n/64, clamped to [256, 4096] — the uncertified share at 100k is
+    # typically well under 1%, below n/64); 0 disables (fastest, results
+    # may be inexact for a small share of queries).
     cluster_fixup: Optional[int] = None
     # Process batches bigger than this in sequential lax.map chunks of this
-    # size.  Solver throughput on one chip peaks near B~1024 and REGRESSES
-    # ~40% by B=4096 (XLA fusion strategies degrade past the VMEM-friendly
-    # footprint; measured in benchmarks/exp_batch.py) — chunking keeps every
-    # chunk at the measured knee.  Results are bitwise identical (batch
-    # elements are independent).
+    # size, to keep every chunk at the solver's throughput knee (the knee
+    # was found before the move to the H100; awaiting re-measurement
+    # there).  Results
+    # are bitwise identical (batch elements are independent).
     batch_chunk: Optional[int] = None
-    # Whole-solve fused Pallas kernel for small pairs (ops/fused_gn): the
-    # ENTIRE while-driver iteration loop — correspondences, robust weights,
-    # normal equations, closed-form solve, retraction, bookkeeping — runs as
-    # ONE kernel, every iterate living in VMEM.  The XLA while driver
-    # launches ~15-25 fused kernels per GN iteration (~110 us/iter at B=256
-    # on 65-point pairs — dispatch/fusion-bound, not FLOP-bound; BENCH.md).
-    # None = auto = OFF: the on-chip A/B (benchmarks/exp_fused_gn.py,
-    # 2026-08-19, v5e) measured the fused kernel SLOWER than the XLA while
-    # driver — forward-only 1.89 ms vs 0.76 ms, IFT fwd+bwd 2.50 ms vs
-    # 1.58 ms at B=256, raw kernel ~1.8 ms across bt=8/16 (bt>=32 exceeds
-    # VMEM).  The Mosaic loop serializes work XLA overlaps across fusions,
-    # so the dispatch savings never materialize.  Kept for parity tests
-    # (True forces; interpret mode off-TPU), False disables.
-    fused_small: Optional[bool] = None
     # Normal-equation solve: 'closed' = pivot-free Cramer/Schur closed form
-    # (fuses to VPU elementwise ops; valid because A is SPD), 'lu' = XLA's
+    # (fuses to elementwise ops; valid because A is SPD), 'lu' = XLA's
     # generic batched LU (the reference's torch.linalg.inv analogue).
     solve_method: str = "closed"  # 'closed' | 'lu'
     scan_unroll: int = 1  # lax.scan unroll factor for the diff driver
     # Anderson acceleration (dicp_tpu.anderson): > 0 enables type-II AA
     # mixing over the last anderson_m iterates in the inference/IFT-forward
-    # while driver.  Measured: pt2pt 25 -> 10 iterations on the reference
+    # while driver.  It cuts pt2pt from 25 to 10 iterations on the reference
     # pair; pt2pl (near-quadratic) pays 1-3 extra evaluations — enable for
     # slow-converging configs.  Requires collect_histories=False (the AA
     # iterate sequence has no reference-contract history semantics).
     anderson_m: int = 0
     anderson_cap: float = 5.0
-    # v2 fused cluster kernel INSIDE the map-sharded shard_map body
-    # (parallel/sharding).  None = auto = follow cluster_nn's own backend
-    # rule (ON for TPU, interpret-mode on CPU); False pins the XLA
-    # candidate path (the pre-round-5 default, kept for A/B); True forces.
-    # Unpinned in round 5: parity is exact on the 8-virtual-device CPU mesh
-    # (tests/test_parallel.py::test_map_sharded_fused_parity) and on-chip
-    # inside a real shard_map (benchmarks/exp_shardmap_fused.py: 45.2 ms vs
-    # 50.9 ms XLA per sharded 100k solve, pose diff 0.0, 2026-08-20).
-    sharded_fused: Optional[bool] = None
 
     def __post_init__(self):
         if self.icp_type not in ("pt2pt", "pt2pl", "symmetric"):
@@ -182,21 +181,16 @@ class ICPConfig:
         # Reverse-mode AD cannot flow through lax.while_loop; scan for diff.
         return "scan" if self.differentiable else "while"
 
-    def resolved_nn_method(self, n: int, m: int, on_cpu: bool) -> str:
-        """Concrete correspondence backend for an (n, m) problem."""
+    def resolved_nn_method(self, n: int, m: int) -> str:
+        """Concrete correspondence backend for an (n, m) problem on this
+        platform (the rule lives in :func:`dicp_tpu.backend.nn_method`)."""
         if self.nn_method != "auto":
             return self.nn_method
         if self.use_pallas_nn is not None:      # legacy switch
             return "pallas" if self.use_pallas_nn else "dense"
-        from dicp_tpu.knn import _PALLAS_THRESHOLD
+        from dicp_tpu import backend
 
-        if n * m <= _PALLAS_THRESHOLD:
-            return "dense"
-        # cluster needs enough groups for pruning to pay; pallas covers the
-        # mid range (and CPU interpret-mode pallas is slow -> cluster there)
-        if m >= 16384 or on_cpu:
-            return "cluster"
-        return "pallas"
+        return backend.nn_method(n, m)
 
     def resolved_cluster_fixup(self, n: int) -> int:
         """Concrete uncertified-query brute-force budget for n queries."""
@@ -204,14 +198,29 @@ class ICPConfig:
             return min(int(self.cluster_fixup), n)
         return min(min(4096, max(256, n // 64)), n)
 
+    def shard_cluster_fixup(self, n_local: int, shards: int,
+                            n_real: Optional[int] = None) -> int:
+        """Fixup budget of ONE shard of a query set split over ``shards``
+        devices: the whole problem's budget (``n_real`` queries, or
+        ``n_local * shards``), so that whenever the single-device solve
+        covers every uncertified query, so does each shard, and the sharded
+        and one-device correspondences agree whatever the shard count."""
+        n = n_real if n_real is not None else n_local * int(shards)
+        return min(self.resolved_cluster_fixup(n), n_local)
+
     def with_(self, **kw) -> "ICPConfig":
         return dataclasses.replace(self, **kw)
 
 
 def load_yaml_config(config_path: Optional[str] = None) -> dict:
-    """Load the reference YAML schema (dICP/ICP.py:21-27)."""
+    """Load the reference YAML schema (dICP/ICP.py:21-27).
+
+    With no path, returns a copy of :data:`DEFAULT_CONFIG` (no PyYAML
+    needed); a path is parsed with PyYAML, an optional dependency."""
     if config_path is None:
-        config_path = DEFAULT_CONFIG_PATH
+        return copy.deepcopy(DEFAULT_CONFIG)
+    import yaml
+
     with open(config_path, "r") as f:
         return yaml.safe_load(f)
 

@@ -15,11 +15,11 @@ is closed-form in the surface normal alone:
 
 so no per-point eigendecomposition is stored or differentiated through —
 the repo's normal estimation (ops/normals, power-iteration, no
-jnp.linalg.eigh which lowers to a ~29 ms iterative kernel on TPU) provides
+jnp.linalg.eigh, which lowers to an iterative kernel) provides
 everything, and Sigma_i is a rank-2 update of 2I inverted by the
-closed-form 3x3 adjugate (ops/smallsolve.inv3) on the VPU.
+closed-form 3x3 adjugate (ops/smallsolve.inv3).
 
-TPU-first structure mirrors dicp_tpu.registration: one jitted program,
+Structure mirrors dicp_tpu.registration: one jitted program,
 `lax.while_loop` early exit for inference / fixed-trip `lax.scan` with
 convergence freezing for reverse-mode AD, f32 matmul precision pinned,
 batch via vmap.
@@ -52,7 +52,7 @@ def _mahalanobis_ne(J, M, r, w, chunk: int = 4096):
 
     Same rounding scheme as registration._normal_equations: a flat einsum
     over n accumulates n sequential partial sums whose f32 noise reaches
-    ~1e-4 in the GN step at ~3e5 rows (measured on chip); summing within
+    ~1e-4 in the GN step at ~3e5 rows; summing within
     chunks then across chunks bounds it ~O(sqrt)."""
     n = J.shape[0]
     MJ = jnp.einsum("nij,njk->nik", M, J)

@@ -109,9 +109,8 @@ def _fp_bwd(cfg, saved, res_bar):
     # The f32 matmul pin must cover the BACKWARD trace too: register_ift's
     # with-block only wraps the primal, and custom_vjp bwd rules are traced
     # during the cotangent sweep — without the pin every einsum/@ here runs
-    # in the TPU's default bf16 and the implicit gradients bias ~1e-2-1e-3
-    # off the unrolled reference (code-review r3; the precision-trap class
-    # BENCH.md documents).
+    # at the backend's default reduced precision (TF32 on the GPU) and the
+    # implicit gradients bias ~1e-3 off the unrolled reference.
     with jax.default_matmul_precision("float32"):
         return _fp_bwd_impl(cfg, saved, res_bar)
 
@@ -139,13 +138,12 @@ def _fp_bwd_impl(cfg, saved, res_bar):
     # EXACTLY (registration._make_corr_fn), so the stationarity linearized
     # here is the same G whose root the forward converged to: the
     # single-target path keeps the query curve-order (computed at the
-    # T_init pose, like the forward) and the default fused kernel; the
-    # batch path pins use_pallas=False, fused=False like the forward's
-    # vmapped call.  A backend mismatch changes the certified set and
-    # silently skews the implicit gradients (code-review r3).
+    # T_init pose, like the forward); the batch path vmaps like the
+    # forward.  A backend mismatch changes the certified set and silently
+    # skews the implicit gradients.
     ps_t = jnp.einsum("nij,npj->npi", C_star, src[..., :3]) + r_star[:, None, :]
     n_, m_ = ps_t.shape[-2], tgt.shape[-2]
-    method = cfg.resolved_nn_method(n_, m_, jax.default_backend() == "cpu")
+    method = cfg.resolved_nn_method(n_, m_)
     if method == "cluster":
         from dicp_tpu.ops.cluster_knn import (build_cluster_index, cluster_nn,
                                               query_order)
@@ -167,17 +165,13 @@ def _fp_bwd_impl(cfg, saved, res_bar):
                 lax.stop_gradient(tgt[..., :3]))
             idx, _, cert = jax.vmap(
                 lambda ix, q: cluster_nn(ix, q, probes=cfg.cluster_probes,
-                                         use_pallas=False, fused=False,
                                          fixup=cfg.resolved_cluster_fixup(n_)))(
                 index, lax.stop_gradient(ps_t))
         # replicate the forward's certificate gate in the stationarity: the
         # fixed point was computed with uncertified matches excluded
         w_prior = w_prior * lax.stop_gradient(_certified_gate(cert, dtype))
     elif method == "pallas":
-        from dicp_tpu.ops.pallas_knn import nn_indices_pallas
-
-        idx = nn_indices_pallas(lax.stop_gradient(ps_t),
-                                lax.stop_gradient(tgt[..., :3]))
+        idx, _ = knn.nn_bruteforce(ps_t, tgt)
     else:
         idx = lax.stop_gradient(knn.nn_indices(ps_t, tgt))
 

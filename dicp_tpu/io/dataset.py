@@ -1,9 +1,9 @@
-"""Streaming scan dataset with background prefetch to the TPU.
+"""Streaming scan dataset with background prefetch to the device.
 
 The host pipeline (disk read -> range filter -> voxel downsample -> pad to a
 static shape -> host-to-device transfer) runs in a worker thread pool via the
 native runtime (:mod:`dicp_tpu.io.native`), keeping the accelerator fed: while
-the TPU registers scan pair k, the host prepares pair k+1.  No reference
+the device registers scan pair k, the host prepares pair k+1.  No reference
 counterpart (the reference has no data loader, SURVEY.md §5).
 
 Static shapes: every scan is padded (zero rows, zero weights — the solver's

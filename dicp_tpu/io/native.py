@@ -4,8 +4,8 @@ Loads ``libdicp_pointcloud.so`` (built from ``native/pointcloud.cpp`` — a C++
 hash-grid voxel filter, range filter, and .bin scan I/O), compiling it on
 first use if g++ is available.  Every entry point has a pure-NumPy fallback
 with identical semantics, so the package works without a toolchain; the
-native path is ~10-30x faster on 100k-point scans and keeps host
-preprocessing off the TPU critical path.
+native path is much faster on 100k-point scans and keeps host
+preprocessing off the device's critical path.
 
 No reference counterpart: the reference has neither native code nor any data
 loader (SURVEY.md §2.2, §5).

@@ -1,6 +1,6 @@
 """Nearest-neighbor correspondence search.
 
-TPU-native replacement for the reference's brute-force NN class
+Replacement for the reference's brute-force NN class
 (dICP/nn.py:4-125).  Three variants with identical semantics:
 
 * hard NN (used for both "differentiable" and "non-differentiable" modes in
@@ -14,13 +14,14 @@ TPU-native replacement for the reference's brute-force NN class
   reference (which calls unseeded ``torch.rand``, dICP/nn.py:60) the noise is
   drawn from an explicit ``jax.random`` key.
 
-The distance matrix is computed in the matmul form |x|^2 + |y|^2 - 2 x.y^T so
-the O(n*m) hot loop runs on the MXU instead of materializing an (n, m, 3)
-broadcast difference (which the reference's Gumbel path does,
-dICP/nn.py:51-56 — its memory hot spot).  For clouds too large for one (n, m)
-tile in HBM, :mod:`dicp_tpu.ops.pallas_knn` provides a tiled Pallas kernel
-with a running top-1 accumulator; :func:`find_nn` dispatches to it above a
-size threshold.
+The small-problem distance matrix is computed in the matmul form
+|x|^2 + |y|^2 - 2 x.y^T instead of materializing an (n, m, 3) broadcast
+difference (which the reference's Gumbel path does, dICP/nn.py:51-56 — its
+memory hot spot).  Above ``backend.DENSE_MAX_PAIRS`` distance entries no
+(n, m) matrix is built: :func:`nn_bruteforce` streams target tiles through
+a running top-1, by the kernel :mod:`dicp_tpu.backend` picks for the
+platform (the Triton kernel in :mod:`dicp_tpu.ops.pallas_knn`, or the XLA
+:func:`nn_argmin_stream`).
 """
 
 from __future__ import annotations
@@ -29,21 +30,25 @@ from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 
-# Above this many distance-matrix entries per batch element, use the tiled
-# Pallas kernel on TPU instead of one dense XLA distance matrix.
-_PALLAS_THRESHOLD = 4096 * 4096
+from dicp_tpu import backend
+from dicp_tpu.backend import DENSE_MAX_PAIRS
+
+# Pad coordinate for streamed target rows: d2 ~ 3e30, finite in f32, never
+# wins against a real point.
+_SENTINEL = 1.0e15
 
 
 def pairwise_sq_dist(x: jnp.ndarray, y: jnp.ndarray) -> jnp.ndarray:
     """Squared Euclidean distances (..., n, 3) x (..., m, 3) -> (..., n, m).
 
-    MXU-friendly matmul form; clipped at zero to guard tiny negatives.
+    Matmul form; clipped at zero to guard tiny negatives.
     """
     x2 = jnp.sum(x * x, axis=-1, keepdims=True)  # (..., n, 1)
     y2 = jnp.sum(y * y, axis=-1, keepdims=True)  # (..., m, 1)
-    # full f32 MXU precision: the default bf16 pass loses ~1e-2 relative on
-    # the cross term, enough to flip argmins between close map points
+    # full f32 precision: a TF32 (or bf16) pass loses ~1e-3 relative on the
+    # cross term, enough to flip argmins between close map points
     xy = jnp.einsum("...nd,...md->...nm", x, y,
                     precision=jax.lax.Precision.HIGHEST)
     d2 = x2 + jnp.swapaxes(y2, -1, -2) - 2.0 * xy
@@ -83,7 +88,7 @@ def gumbel_nn(
     neighbor = softmax((-d^2 + gumbel_noise) / tau) @ y — a convex
     combination, so gradients reach the query and ALL target rows.
 
-    Above ``_PALLAS_THRESHOLD`` distance entries the softmax streams over
+    Above ``DENSE_MAX_PAIRS`` distance entries the softmax streams over
     target chunks with an online (flash-attention-style) max/denominator
     rescaling, so the (..., n, m) logits matrix is never materialized — the
     reference's Gumbel memory hot spot (dICP/nn.py:51-56) removed.  The
@@ -92,7 +97,7 @@ def gumbel_nn(
     size (None = auto).
     """
     n, m = x.shape[-2], y.shape[-2]
-    if chunk is None and n * m <= _PALLAS_THRESHOLD:
+    if chunk is None and n * m <= DENSE_MAX_PAIRS:
         d2 = pairwise_sq_dist(x, y[..., :3])
         logits = -d2
         u = jax.random.uniform(key, shape=logits.shape, dtype=logits.dtype)
@@ -100,14 +105,12 @@ def gumbel_nn(
         probs = jax.nn.softmax((logits + noise) / tau, axis=-1)
         return jnp.einsum("...nm,...mc->...nc", probs, y)
     if chunk is None:
-        chunk = max(128, min(m, _PALLAS_THRESHOLD // max(n, 1)))
+        chunk = max(128, min(m, DENSE_MAX_PAIRS // max(n, 1)))
     return _gumbel_nn_stream(x, y, key, tau, eps, chunk)
 
 
 def _gumbel_nn_stream(x, y, key, tau, eps, chunk):
     """Online-softmax Gumbel NN over target chunks; O(n*chunk) live memory."""
-    from jax import lax
-
     dtype = x.dtype
     m, c = y.shape[-2], y.shape[-1]
     nchunks = -(-m // chunk)
@@ -164,6 +167,88 @@ def _handle_dimensions(x: jnp.ndarray, y: jnp.ndarray) -> Tuple[jnp.ndarray, jnp
     return x_use, y_use
 
 
+def min_and_lowest_id(d2: jnp.ndarray, ids: jnp.ndarray):
+    """(min over the last axis, lowest id among its minima) in ONE reduction.
+
+    ``d2`` (..., C), ``ids`` broadcastable to it.  A single variadic
+    reduce: computing the min and then ``d2 == min`` in a second pass lets
+    XLA recompute ``d2`` in two fusions with different rounding (FMA
+    contraction differs between them on the GPU), after which no column
+    equals the min and the id comes back as the int32 sentinel."""
+    ids = jnp.broadcast_to(ids.astype(jnp.int32), d2.shape)
+
+    def pick(a, b):
+        (da, ia), (db, ib) = a, b
+        take_b = (db < da) | ((db == da) & (ib < ia))
+        return jnp.where(take_b, db, da), jnp.where(take_b, ib, ia)
+
+    init = (jnp.asarray(jnp.inf, d2.dtype),
+            jnp.asarray(jnp.iinfo(jnp.int32).max, jnp.int32))
+    return lax.reduce((d2, ids), init, pick, (d2.ndim - 1,))
+
+
+def nn_argmin_stream(xs: jnp.ndarray, pts: jnp.ndarray, chunk: int = 4096,
+                     ids: Optional[jnp.ndarray] = None):
+    """Exact brute-force argmin of ``xs`` (U, 3) against ``pts`` (M, 3).
+
+    Streams target chunks through a running (d2, id) argmin in difference
+    form, never materializing (U, M).  ``ids`` (M,) labels each target row
+    (e.g. ORIGINAL-cloud rows when ``pts`` is Hilbert-sorted); exact-distance
+    ties resolve to the LOWEST id — the global brute-force rule
+    duplicate-point data depends on.  Returns (id (U,), d2 (U,))."""
+    M = pts.shape[0]
+    if ids is None:
+        ids = jnp.arange(M, dtype=jnp.int32)
+    nch = -(-M // chunk)
+    pad = nch * chunk - M
+    if pad:
+        pts = jnp.concatenate(
+            [pts, jnp.full((pad, 3), _SENTINEL, pts.dtype)], axis=0)
+        ids = jnp.concatenate(
+            [ids.astype(jnp.int32),
+             jnp.full((pad,), jnp.iinfo(jnp.int32).max, jnp.int32)])
+    ids = ids.astype(jnp.int32)
+
+    def step(carry, i):
+        best, bid = carry
+        yc = lax.dynamic_slice_in_dim(pts, i * chunk, chunk, axis=0)
+        idc = lax.dynamic_slice_in_dim(ids, i * chunk, chunk, axis=0)
+        d2 = jnp.sum((xs[:, None, :] - yc[None, :, :].astype(xs.dtype)) ** 2,
+                     axis=-1)                                  # (U, chunk)
+        lmin, lid = min_and_lowest_id(d2, idc[None, :])
+        better = (lmin < best) | ((lmin == best) & (lid < bid))
+        return (jnp.where(better, lmin, best),
+                jnp.where(better, lid, bid)), None
+
+    # derive the init from xs so it inherits the varying-manual-axes type
+    # under shard_map (cf. cluster_knn._candidate_argmin_scan)
+    zero = 0.0 * xs[..., 0]
+    init = (jnp.inf + zero,
+            jnp.iinfo(jnp.int32).max + zero.astype(jnp.int32))
+    (best, bid), _ = lax.scan(step, init, jnp.arange(nch))
+    return bid, best
+
+
+def nn_bruteforce(x: jnp.ndarray, y: jnp.ndarray):
+    """Exact 1-NN without an (n, m) matrix: (..., n, 3), (..., m, >=3) ->
+    (idx (..., n) int32, d2 (..., n)).
+
+    The kernel is the platform's (:func:`dicp_tpu.backend.bruteforce_kernel`):
+    the compiled Pallas-Triton kernel on the GPU, the XLA streaming argmin
+    elsewhere.  Both use the difference form and the lowest-index tie rule.
+    Indices carry no gradient (hard-NN semantics)."""
+    x = lax.stop_gradient(x[..., :3])
+    y = lax.stop_gradient(y[..., :3])
+    if backend.bruteforce_kernel() == "triton":
+        from dicp_tpu.ops.pallas_knn import nn_distances_pallas
+
+        return nn_distances_pallas(x, y)
+    fn = nn_argmin_stream
+    for _ in x.shape[:-2]:
+        fn = jax.vmap(fn)
+    return fn(x, y)
+
+
 def find_nn_normalized(
     x: jnp.ndarray,
     y: jnp.ndarray,
@@ -173,24 +258,17 @@ def find_nn_normalized(
 
     Solver-internal entry point: skips :func:`_handle_dimensions`, whose
     transpose heuristic misreads n==3 or m==3 clouds as (3, n) layout and
-    silently corrupts correspondences.  ``use_pallas`` None auto-selects the
-    tiled kernel for large clouds on TPU.
+    silently corrupts correspondences.  ``use_pallas`` True forces the tiled
+    brute force (:func:`nn_bruteforce`), False the dense matrix; None picks
+    the tiled form above ``DENSE_MAX_PAIRS`` distance entries.
     """
     n, m = x.shape[-2], y.shape[-2]
     if use_pallas is None:
-        use_pallas = (
-            n * m > _PALLAS_THRESHOLD
-            and jax.default_backend() not in ("cpu",)
-        )
+        use_pallas = n * m > DENSE_MAX_PAIRS
     if use_pallas:
-        from dicp_tpu.ops.pallas_knn import nn_indices_pallas
-
-        # pallas_call has no AD rule; the argmin index is gradient-detached
-        # in hard-NN semantics anyway, so compute it on stop_gradient'd
-        # inputs — only the gather_rows carries tangents (into the target),
-        # exactly like the dense hard_nn path.
-        idx = nn_indices_pallas(jax.lax.stop_gradient(x),
-                                jax.lax.stop_gradient(y[..., :3]))
+        # the index is gradient-detached in hard-NN semantics; only the
+        # gather carries tangents (into the target), like the dense hard_nn
+        idx, _ = nn_bruteforce(x, y)
         return gather_rows(y, idx)
     return hard_nn(x, y)
 
@@ -210,8 +288,8 @@ def find_nn(
     Shape-normalizes inputs (including the reference's documented 3x3
     transpose ambiguity, dICP/nn.py:106-108), then dispatches: Gumbel soft NN
     when ``differentiable and use_gumbel`` (requires ``key``), hard NN
-    otherwise.  ``use_pallas`` forces / forbids the tiled Pallas kernel; by
-    default it is used for large clouds on TPU.
+    otherwise.  ``use_pallas`` forces / forbids the tiled brute force
+    (:func:`nn_bruteforce`); by default it is used for large clouds.
     """
     x_use, y_use = _handle_dimensions(x, y)
     if differentiable and use_gumbel:

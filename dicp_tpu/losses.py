@@ -3,7 +3,7 @@
 Pure-function equivalents of the reference's ``loss`` class
 (dICP/loss.py:3-58) — in a functional JAX design the "loss object" is just a
 weight function applied inside the jitted Gauss-Newton step, letting XLA fuse
-the reweighting into the residual/Jacobian computation (a single VPU pass)
+the reweighting into the residual/Jacobian computation (a single pass)
 instead of a separate kernel launch.
 
 All functions take ``err`` of shape (..., d) and reduce over the LAST axis

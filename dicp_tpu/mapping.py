@@ -6,14 +6,14 @@ scan-to-scan chaining: registering against an *accumulated* map anchors
 every scan to geometry posed many frames ago, so per-pair errors stop
 compounding into drift.
 
-TPU-first design — everything static-shape, one jitted step per scan:
+Design — everything static-shape, one jitted step per scan:
 
 * **Merged voxel map** (:class:`LocalMap`): a fixed-capacity row buffer,
   one fused entry per occupied world-frame voxel, holding the running
   (count-weighted) mean position and the running mean of the normals'
   outer products n n^T.  Merging a scan is a lexsort + segment-mean over
   the union of the current rows and the scan's points — O((cap+n) log) on
-  the VPU, no host sync, shapes static.  Running means matter doubly:
+  device, no host sync, shapes static.  Running means matter doubly:
   sensor noise averages down as scans accumulate, and there is never more
   than ONE copy of a surface in the map.  (A ring buffer of per-scan
   voxelizations — the first design — keeps `slots` slightly-misaligned
@@ -278,7 +278,7 @@ def map_step(m: LocalMap, scan: jnp.ndarray, t_pred: jnp.ndarray,
     accuracy default) or ``"sgd"`` (stochastic mini-batch GN,
     :func:`dicp_tpu.sgd_icp.register_sgd`, ``key`` required): the
     correspondence pass — the dominant per-iteration cost at serving
-    scale (BENCH.md: 5.85 ms of the 60k-vs-65k GN iteration) — runs over
+    scale — runs over
     ``sgd_minibatch`` sampled points instead of all n.  The merged map is
     what averages the residual mini-batch noise down: each voxel's
     running mean integrates many scans, so the map (and hence later
@@ -286,8 +286,8 @@ def map_step(m: LocalMap, scan: jnp.ndarray, t_pred: jnp.ndarray,
 
     ``merge_subsample``: merge only a strided subset of the posed scan
     (the SOLVE still uses every point).  The per-scan merge cost is
-    dominated by estimating the incoming scan's normals (6.6 of 14.8 ms
-    at 60k, benchmarks/exp_merge.py) plus the union-row sort/reduce —
+    dominated by estimating the incoming scan's normals plus the
+    union-row sort/reduce —
     both scale with the merged row count, while the map's running means
     integrate observations ACROSS scans anyway: a voxel seen by a third
     of each scan for 3 scans has the same observation count as one full
@@ -314,14 +314,13 @@ def map_step(m: LocalMap, scan: jnp.ndarray, t_pred: jnp.ndarray,
                          "mini-batch sampler must be reproducible)")
     if deq is not None:
         # scan arrived as the pipeline's packed uint16 transfer (8 B/point
-        # over the wire instead of 12 — the scan-to-map host loop is
-        # h2d-transfer-bound, BENCH.md); decode fuses into this program
+        # over the wire instead of 12); decode fuses into this program
         from dicp_tpu.pipeline import dequantize_scan
 
         scan = dequantize_scan(scan, deq)
     with_normals = cfg.icp_type != "pt2pt"
-    # full-precision matmuls: the TPU's default bf16 pass corrupts world
-    # coordinates by ~4 cm at +-20 m (the round-1 data-gen trap, BENCH.md)
+    # full-precision matmuls: a reduced-precision (TF32/bf16) pass corrupts
+    # world coordinates by centimetres at +-20 m
     with jax.default_matmul_precision("float32"):
         target = map_target(m, with_normals)
         if solver == "sgd":
@@ -424,10 +423,8 @@ def scan_to_map_odometry(
     ``quantize``: ship each scan host->device as the pipeline's packed
     (n, 4) uint16 transfer (8 B/point at ~20-bit xy resolution,
     dequantized inside the solve program; quantization math runs in a
-    prefetch thread).  The host loop is h2d-transfer-bound — in a
-    congestion window the solver choice barely moved it while the f32
-    scan transfer dominated (BENCH.md) — so fewer bytes is the serving
-    lever.  Requires weightless scans (``weight is None``); adds the
+    prefetch thread).  Fewer bytes helps where the host loop is
+    h2d-transfer-bound.  Requires weightless scans (``weight is None``); adds the
     quantization's ~1e-4-scale fixed-point shift (same mechanism as the
     pipeline's measured 1.16e-4 at 60k).
     """
@@ -443,8 +440,8 @@ def scan_to_map_odometry(
     xi_ema = None
     base_key = jax.random.key(seed) if solver == "sgd" else None
     # encode (when quantizing) AND device_put in a daemon prefetch thread:
-    # an inline jnp.asarray of a 60k-pt scan is a BLOCKING ~20 ms h2d on
-    # the main thread, serializing transfer after the previous dispatch
+    # an inline jnp.asarray of a 60k-pt scan is a BLOCKING h2d on the main
+    # thread, serializing transfer after the previous dispatch
     # instead of overlapping it with the device solve
     from dicp_tpu.pipeline import _prefetched, _quantize_host
 

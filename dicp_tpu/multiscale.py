@@ -11,8 +11,8 @@ offer:
 * fewer full-resolution iterations — the expensive final level starts from
   an almost-converged pose and only polishes.
 
-TPU-first design
-----------------
+Design
+------
 Each level is a STATIC-shape solve: the dynamic number of occupied voxels
 is re-packed into a fixed per-level slot budget by :func:`subsample_packed`
 (a systematic gather over the packed centroids — exact when the budget

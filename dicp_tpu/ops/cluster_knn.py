@@ -1,14 +1,12 @@
 """Exact cluster-pruned nearest-neighbor search for large clouds.
 
-The brute-force (n, m) kernel (``ops/pallas_knn``) is compute-floor-bound at
-~62 ms for 100k x 100k on one v5e chip: the distance tile needs ~6 VPU ops
-per pair in exact f32 (MXU score-form variants measured slower — the K=8
-matmul is row-streaming-bound, see benchmarks/exp_knn.py).  This module
-replaces O(n*m) with an O(n * probes * group) EXACT search — the TPU-native
-answer to the kd-trees a CPU/CUDA library would use (the reference has no
-index at all — torch.cdist at dICP/nn.py:32-38).
+Brute force (``knn.nn_bruteforce``) costs O(n*m) distance evaluations —
+1e10 at 100k x 100k.  This module replaces that with an
+O(n * probes * group) EXACT search: the accelerator-friendly answer to the
+kd-trees a CPU library would use (the reference has no index at all —
+torch.cdist at dICP/nn.py:32-38).  Everything is plain XLA.
 
-Design (third iteration; see BENCH.md for the measured evolution):
+Design:
 
 1. **Build** (once per target cloud — the target is constant across all GN
    iterations of a registration): Hilbert-sort the m points (one device
@@ -20,13 +18,13 @@ Design (third iteration; see BENCH.md for the measured evolution):
    quantization frame), form blocks of ~128 consecutive queries with a
    center+radius cover each, and select each BLOCK's top-P groups by the
    block-level lower bound ``max(0, |o-c| - r_blk - r_grp)^2`` — a
-   (n/128, G) top_k instead of the (n, G) one that measured 31 ms at 100k
-   (per-query lax.top_k was the bottleneck of design #1; contiguous-window
-   search, design #2, was fast but could not certify).  Every query in a
+   (n/128, G) top_k instead of a per-query (n, G) one (per-query selection
+   was the bottleneck of an earlier design; a contiguous-window search was
+   fast but could not certify).  Every query in a
    block searches the block's P*g gathered candidates exactly.
 3. **Certificate**: per query, exact iff its found distance <= the
    PER-QUERY lower bound minimized over all non-selected groups (the
-   (n, G) LB matrix costs only ~0.6 ms — it was never the expensive part).
+   (n, G) LB matrix is cheap next to the candidate search).
    Sound by construction: a non-selected group's true points are at
    distance >= its LB.  All bounds carry a few-ulp conservative slack so
    f32 rounding can only loosen the certificate, never fake it; the
@@ -47,7 +45,7 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-_SENTINEL = 1.0e15  # pad coordinate: d2 ~ 3e30, finite in f32, never wins
+from dicp_tpu.knn import _SENTINEL, min_and_lowest_id, nn_argmin_stream
 _QBLOCK = 128       # queries per selection block
 
 
@@ -110,8 +108,8 @@ def hilbert_keys(points: jnp.ndarray, bits: int = 10,
     """(m, 3) -> (m,) int32 Hilbert-curve indices on a 1024^3 grid.
 
     Unlike Morton, the Hilbert curve has no octant discontinuities, so
-    equal-count runs of the sorted order form COMPACT groups (measured:
-    ~2.5x smaller mean covering radius on uniform clouds) and consecutive
+    equal-count runs of the sorted order form COMPACT groups (about 2.5x
+    smaller mean covering radius on uniform clouds) and consecutive
     sorted queries are spatial neighbors (the block-scattered query exploits
     this).  Skilling's transpose algorithm ("Programming the Hilbert
     curve", 2004) vectorized as pure uint32 ops over the whole cloud.  Keys
@@ -287,14 +285,14 @@ def _candidate_argmin_scan(index: ClusterIndex, xb: jnp.ndarray,
     g = index.points.shape[1]
     nb, Qb, _ = xb.shape
     P = bsel.shape[1]
+    offs = jnp.arange(g, dtype=jnp.int32)
 
     def step(carry, j):
         best, brow = carry
         grp = bsel[:, j]                                     # (nb,)
         cand = index.points[grp].astype(xb.dtype)            # (nb, g, 3)
         d2 = jnp.sum((xb[:, :, None, :] - cand[:, None, :, :]) ** 2, axis=-1)
-        lmin = jnp.min(d2, axis=-1)                          # (nb, Qb)
-        larg = jnp.argmin(d2, axis=-1).astype(jnp.int32)
+        lmin, larg = min_and_lowest_id(d2, offs)             # (nb, Qb)
         row = grp[:, None] * g + larg
         better = lmin < best
         return (jnp.where(better, lmin, best),
@@ -314,51 +312,6 @@ def _unsort(arr, inv, n):
     return jnp.take(flat, inv, axis=0)
 
 
-def _dense_argmin_stream(xs: jnp.ndarray, pts: jnp.ndarray, chunk: int = 4096,
-                         ids: Optional[jnp.ndarray] = None):
-    """Exact brute-force argmin of ``xs`` (U, 3) against ``pts`` (M, 3).
-
-    Streams target chunks through a running (d2, id) argmin — the VPU
-    diff-form floor, never materializing (U, M).  ``ids`` (M,) labels each
-    target row (e.g. ORIGINAL-cloud rows when ``pts`` is Hilbert-sorted);
-    exact-distance ties resolve to the LOWEST id — the global brute-force
-    rule duplicate-point data depends on.  Returns (id (U,), d2 (U,))."""
-    M = pts.shape[0]
-    if ids is None:
-        ids = jnp.arange(M, dtype=jnp.int32)
-    nch = -(-M // chunk)
-    pad = nch * chunk - M
-    if pad:
-        pts = jnp.concatenate(
-            [pts, jnp.full((pad, 3), _SENTINEL, pts.dtype)], axis=0)
-        ids = jnp.concatenate(
-            [ids.astype(jnp.int32),
-             jnp.full((pad,), jnp.iinfo(jnp.int32).max, jnp.int32)])
-    ids = ids.astype(jnp.int32)
-
-    def step(carry, i):
-        best, bid = carry
-        yc = lax.dynamic_slice_in_dim(pts, i * chunk, chunk, axis=0)
-        idc = lax.dynamic_slice_in_dim(ids, i * chunk, chunk, axis=0)
-        d2 = jnp.sum((xs[:, None, :] - yc[None, :, :].astype(xs.dtype)) ** 2,
-                     axis=-1)                                  # (U, chunk)
-        lmin = jnp.min(d2, axis=-1)
-        # lowest id among the chunk's tied minima
-        lid = jnp.min(jnp.where(d2 == lmin[:, None], idc[None, :],
-                                jnp.iinfo(jnp.int32).max), axis=-1)
-        better = (lmin < best) | ((lmin == best) & (lid < bid))
-        return (jnp.where(better, lmin, best),
-                jnp.where(better, lid, bid)), None
-
-    # derive the init from xs so it inherits the varying-manual-axes type
-    # under shard_map (cf. _candidate_argmin_scan)
-    zero = 0.0 * xs[..., 0]
-    init = (jnp.inf + zero,
-            jnp.iinfo(jnp.int32).max + zero.astype(jnp.int32))
-    (best, bid), _ = lax.scan(step, init, jnp.arange(nch))
-    return bid, best
-
-
 def _fixup_uncertified(index: ClusterIndex, x: jnp.ndarray, idx, d2, cert,
                        budget: int):
     """Brute-force up to ``budget`` uncertified queries against the full
@@ -368,8 +321,8 @@ def _fixup_uncertified(index: ClusterIndex, x: jnp.ndarray, idx, d2, cert,
     O(n) compaction (no sort): uncertified queries are scattered into a
     fixed-size slot vector by their running count.  If MORE than ``budget``
     queries are uncertified, the excess keeps ``certified=False`` — the
-    certificate still never lies.  Measured need: 0.02-0.7%% of 100k-query
-    worst-case workloads (BENCH.md), far under the default budget."""
+    certificate still never lies.  The uncertified share is typically well
+    under 1% of queries, far under the default budget."""
     n = x.shape[0]
     U = min(int(budget), n)
     unc = jnp.logical_not(cert)
@@ -381,8 +334,8 @@ def _fixup_uncertified(index: ClusterIndex, x: jnp.ndarray, idx, d2, cert,
     xs = jnp.take(x, sel, axis=0)
     # stream over the sorted cloud but tie-break by ORIGINAL row (ids =
     # index.order), matching the exact brute-force rule on duplicate points
-    bf_idx, bf_d2 = _dense_argmin_stream(xs, index.points.reshape(-1, 3),
-                                         ids=index.order)
+    bf_idx, bf_d2 = nn_argmin_stream(xs, index.points.reshape(-1, 3),
+                                     ids=index.order)
     take = jnp.take(unc, sel)           # unwritten slots point at query 0:
     new_idx = idx.at[sel].set(jnp.where(take, bf_idx, jnp.take(idx, sel)))
     new_d2 = d2.at[sel].set(jnp.where(take, bf_d2.astype(d2.dtype),
@@ -391,72 +344,28 @@ def _fixup_uncertified(index: ClusterIndex, x: jnp.ndarray, idx, d2, cert,
     return new_idx, new_d2, new_cert
 
 
-# Query-block size for the fused v2 kernel.  128 matches the XLA path's
-# selection granularity exactly (identical bsel -> identical certified set
-# and results); pre-gathering already removed the per-block DMA latency
-# that motivated bigger blocks, and measured selection quality DEGRADES at
-# 512 (96.2% vs 99.1% agreement at 100k — bigger covers pick worse groups).
-_FUSED_QBLOCK = 128
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("probes", "use_pallas", "fixup", "fused",
-                                    "fused_qblock"))
+@functools.partial(jax.jit, static_argnames=("probes", "fixup"))
 def cluster_nn(index: ClusterIndex, x: jnp.ndarray, probes: int = 16,
-               use_pallas: Optional[bool] = None,
                order: Optional[jnp.ndarray] = None,
                fixup: int = 0,
-               fused: Optional[bool] = None,
-               fused_qblock: int = _FUSED_QBLOCK,
                ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Exact-certified 1-NN: (n, 3) queries -> (idx (n,), d2 (n,), certified (n,)).
 
     ``idx`` indexes the ORIGINAL target rows.  ``certified[i]`` is True when
     the result is provably the global argmin (see module docstring).
-    ``use_pallas``: the v1 in-kernel-DMA block-search kernel — kept for
-    comparison only (measured 15.6 ms vs the XLA path's 12.1 ms at 100k:
-    its nb*P tiny (3, g) slab DMAs are latency-bound; see BENCH.md).
     ``order``: precomputed :func:`query_order` permutation (a locality hint
     the solver reuses across GN iterations — rigid motion preserves it).
     ``fixup`` > 0: brute-force up to that many uncertified queries against
     the full cloud (in-solver exactness escalation; see
     :func:`_fixup_uncertified`) — with a budget covering the uncertified
     count, every returned neighbor is provably exact.
-    ``fused``: v2 Pallas kernel (ops/pallas_cluster.fused_search_pallas) —
-    XLA-batched candidate gather (the slab DMAs batched into one large
-    gather) + one VMEM kernel fusing chunked distances, running argmin and
-    the certification bound.  None = auto: ON for TPU backends — measured
-    6.8 ms vs the XLA path's 8.5 ms at 100k x 100k with IDENTICAL results
-    (same selection, same tie rule).
     """
-    if fused is None:
-        fused = jax.default_backend() != "cpu" and not use_pallas
-    if fused:
-        xb, inv, n = _sorted_blocks(index, x[..., :3], order,
-                                    qblock=fused_qblock)
-        bsel, P = _block_select(index, xb, probes)
-        from dicp_tpu.ops.pallas_cluster import fused_search_pallas
-
-        best, rows, bound = fused_search_pallas(
-            index.points, index.centers, index.radius, xb, bsel,
-            interpret=jax.default_backend() == "cpu")
-        best = best.astype(xb.dtype)
-        bound = bound.astype(xb.dtype)
-    else:
-        xb, inv, n = _sorted_blocks(index, x[..., :3], order)
-        bsel, P = _block_select(index, xb, probes)
-        if use_pallas:
-            from dicp_tpu.ops.pallas_cluster import block_search_pallas
-
-            best, rows = block_search_pallas(index.points, xb, bsel)
-            best = best.astype(xb.dtype)
-        else:
-            # scan over groups with a running argmin: each step's distance+
-            # reduce chain fuses into one streaming pass — 5.5 ms vs 7.3 ms
-            # for the flat (nb, Qb, P*g) matrix at 100k (no 1.2 GB
-            # materialization)
-            best, rows = _candidate_argmin_scan(index, xb, bsel)
-        bound = _query_bounds(index, xb, bsel)
+    xb, inv, n = _sorted_blocks(index, x[..., :3], order)
+    bsel, P = _block_select(index, xb, probes)
+    # scan over groups with a running argmin: each step's distance+reduce
+    # chain fuses into one streaming pass, with no (nb, Qb, P*g) matrix
+    best, rows = _candidate_argmin_scan(index, xb, bsel)
+    bound = _query_bounds(index, xb, bsel)
     idx = index.order[rows]
     idx, best, cert = (_unsort(idx, inv, n), _unsort(best, inv, n),
                        _unsort(best <= bound, inv, n))
@@ -469,49 +378,29 @@ def cluster_nn(index: ClusterIndex, x: jnp.ndarray, probes: int = 16,
 def _topk_small(d2: jnp.ndarray, k: int):
     """Ascending top-k by iterative argmin extraction.
 
-    ``lax.top_k`` lowers to a per-row sort on TPU — measured 115 ms for
-    (100k, 2048) k=16; k unrolled min/argmin/mask passes cost ~4 VPU passes
-    each instead.  Stable (lowest index on ties), exact."""
+    k unrolled (min, lowest index)/mask passes over the candidate matrix;
+    faster than ``lax.top_k`` at k=16 on a (100k, 2048) matrix on the H100
+    (benchmarks/bench_kernels.py, PERF.md).  Stable (lowest index on ties),
+    exact."""
     vals, idxs = [], []
     cur = d2
     col = jnp.arange(d2.shape[-1], dtype=jnp.int32)
     big = jnp.asarray(jnp.inf, d2.dtype)
     for _ in range(k):
-        m = jnp.min(cur, axis=-1)
-        j = jnp.argmin(cur, axis=-1).astype(jnp.int32)
+        m, j = min_and_lowest_id(cur, col)
         vals.append(m)
         idxs.append(j)
         cur = jnp.where(col == j[..., None], big, cur)
     return jnp.stack(vals, axis=-1), jnp.stack(idxs, axis=-1)
 
 
-@functools.partial(jax.jit, static_argnames=("k", "probes", "fused"))
+@functools.partial(jax.jit, static_argnames=("k", "probes"))
 def cluster_knn(index: ClusterIndex, x: jnp.ndarray, k: int, probes: int = 16,
-                fused: Optional[bool] = None,
                 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Exact-certified k-NN: -> (idx (n, k), d2 (n, k), certified (n,)).
 
     Neighbors are sorted by ascending distance.  ``certified`` requires the
-    k-th distance to beat the best non-selected group's lower bound.
-    ``fused`` (auto: ON for TPU backends when k <= 32): the Pallas
-    extraction kernel (ops/pallas_cluster.fused_topk_pallas) — the
-    candidate d2 tile lives in VMEM and the k argmin/mask passes never
-    re-read HBM, vs the XLA path's k full passes over the (n, P*g)
-    candidate matrix (78-115 ms at 100k k=16, VERDICT r2 #3)."""
-    if fused is None:
-        fused = jax.default_backend() != "cpu" and k <= 32
-    if fused:
-        from dicp_tpu.ops.pallas_cluster import fused_topk_pallas
-
-        xb, inv, n = _sorted_blocks(index, x[..., :3], qblock=_FUSED_QBLOCK)
-        bsel, P = _block_select(index, xb, probes)
-        d2k, rows, bound = fused_topk_pallas(
-            index.points, index.centers, index.radius, xb, bsel, k,
-            interpret=jax.default_backend() == "cpu")
-        d2k = d2k.astype(xb.dtype)
-        idx = index.order[rows]
-        return (_unsort(idx, inv, n), _unsort(d2k, inv, n),
-                _unsort(d2k[..., -1] <= bound.astype(xb.dtype), inv, n))
+    k-th distance to beat the best non-selected group's lower bound."""
     xb, inv, n = _sorted_blocks(index, x[..., :3])
     bsel, P = _block_select(index, xb, probes)
     d2, pos = _candidate_d2(index, xb, bsel)

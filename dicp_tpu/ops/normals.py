@@ -5,17 +5,16 @@ The reference assumes pt2pl targets arrive with precomputed normal columns
 PCA normals: the normal at p is the smallest-eigenvalue eigenvector of the
 covariance of its k nearest neighbors.
 
-TPU-first choices:
+Design choices:
 
 * three neighborhood backends: dense distance matrix + top_k (small),
   cluster-pruned exact k-NN (``ops/cluster_knn``), and — the scale path —
-  :func:`estimate_normals_weighted`, which needs NO k-NN at all
-  (``lax.top_k`` is sort-lowered and HBM-bound on TPU, BENCH.md): an
-  Epanechnikov-weighted covariance over cluster candidates whose moment
-  sum is one fat-K MXU matmul;
+  :func:`estimate_normals_weighted`, which needs NO k-NN selection at all:
+  an Epanechnikov-weighted covariance over cluster candidates whose moment
+  sum is one fat-K matmul;
 * the 3x3 symmetric eigenproblem solved in CLOSED FORM (trigonometric
   eigenvalues + eigenspace projector), not ``jnp.linalg.eigh`` — XLA lowers
-  tiny eigh to a sequential Jacobi loop costing ~29 ms per dispatch on TPU;
+  tiny eigh to a sequential Jacobi loop;
 * everything vmap/jit-safe with static shapes; 2-D scans get a dedicated
   2x2 path (for planar data the 3-D smallest eigenvector is the out-of-plane
   axis, not the in-plane contour normal).
@@ -145,11 +144,11 @@ def estimate_normals_weighted(
 ) -> jnp.ndarray:
     """Kernel-weighted PCA normals — the large-cloud fast path (n, 3) -> (n, 3).
 
-    Instead of exact k-NN sets (whose top-k selection is HBM-bound on TPU —
-    ~78 ms at 100k even with iterative extraction, BENCH.md), each point's
+    Instead of exact k-NN sets (whose top-k selection re-reads the
+    candidate matrix k times), each point's
     covariance is an Epanechnikov-weighted moment sum over its cluster-index
     candidates: w = max(0, 1 - d2/h2).  The moment accumulation is ONE
-    matmul with contraction over the candidates (fat K -> MXU-efficient),
+    matmul with contraction over the candidates (fat K),
     and the bandwidth h = bandwidth_scale * max(own 1-NN distance,
     block-median 1-NN distance) adapts to local density without collapsing
     on close pairs.  Estimator quality matches kNN-PCA on smooth surfaces
@@ -182,7 +181,7 @@ def estimate_normals_weighted(
         # center candidates at the block mean BEFORE the moment sum: the
         # raw-moment covariance S2/S0 - mu mu^T cancels catastrophically in
         # f32 at scene-scale coordinates (entries ~R^2=800 vs cov ~h^2=0.1
-        # -> ~1e-3 relative noise, measured ~2 deg of normal tilt on chip);
+        # -> ~1e-3 relative noise, ~2 deg of normal tilt in f32);
         # after centering the moment scale is the block extent, not R.
         # Sentinel pads would poison the mean -> mask them out.
         real = cand[..., 0] < _SENTINEL * 0.5              # (nb, C)

@@ -1,28 +1,32 @@
-"""Tiled Pallas 1-NN kernel for TPU.
+"""Tiled brute-force 1-NN kernel, Pallas through Triton (GPU).
 
-This is the TPU-native ownership of the reference's performance hot spot —
-the brute-force O(n*m) distance/argmin (torch.cdist + argmin at
-dICP/nn.py:32-38, the dominant cost in SURVEY.md §3.2).  Instead of
-materializing one dense (n, m) distance matrix in HBM, the kernel streams
-target tiles through VMEM (Pallas double-buffers the HBM->VMEM DMA
-automatically via the BlockSpec pipeline) and carries a running
-(best-distance, best-index) accumulator per query row:
+The reference's hot spot is the brute-force O(n*m) distance/argmin
+(torch.cdist + argmin at dICP/nn.py:32-38, SURVEY.md §3.2).  This kernel
+never writes the (n, m) distance matrix: each program owns a block of
+``bq`` queries and walks the target cloud tile by tile in a
+``lax.fori_loop``, carrying a running (min d2, first argmin) per
+(query, tile column) slot in registers; the slots are reduced once, after
+the loop.
 
-  grid = (query_tiles, target_tiles)        # target axis minor => sequential
-  x tile:  (TQ, 3) resident per query tile
-  y tile:  (TM, 3) streamed
-  d2 tile: (TQ, TM) = |y|^2 - 2 x.y^T on the MXU (full f32 precision; the
-           |x|^2 row constant cannot change the argmin and is added back at
-           the end), reduced to (TQ, 1) min/argmin on the VPU.
+  grid      = (n_pad / bq,)                 one program per query block
+  queries   = three (bq,) coordinate vectors, loaded once per program
+  targets   = (3, m_pad) layout: each (bt,) tile is three coalesced loads
+  d2 tile   = (bq, bt), exact difference form sum_c (x_c - y_c)^2 — no
+              |x|^2 + |y|^2 - 2 x.y cancellation, and no matmul, so TF32
+              never touches it
 
-Padding: query rows are padded to TQ (results sliced off); target rows are
-padded with +1e30 so d2 = +inf never wins the min — replacing the
-reference's max(source)*1000 sentinel trick (dICP/ICP.py:460) with a mask
-that costs nothing.
+Padding: query rows are padded to ``bq`` (results sliced off); target rows
+are padded with +1e30 so their d2 overflows to +inf and never wins —
+replacing the reference's max(source)*1000 sentinel trick
+(dICP/ICP.py:460).
 
-Ties resolve to the lowest index (first occurrence), matching
-jnp.argmin/torch.argmin semantics across tiles because a strict '<' keeps
-the earlier tile's winner.
+Ties resolve to the lowest index, matching jnp.argmin/torch.argmin: each
+slot's strict '<' keeps its earliest tile, and the final masked min over
+slots picks the lowest index among the tied slots.
+
+There is no automatic interpreter: ``interpret=True`` runs the kernel on
+the CPU for tests and must be asked for.  Which platform runs this kernel
+at all is decided in :mod:`dicp_tpu.backend`.
 """
 
 from __future__ import annotations
@@ -31,121 +35,112 @@ import functools
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
-# Tile sizes: TQ queries x TM targets -> (TQ, TM) f32 distance tile in VMEM.
-# 256 x 2048 x 4B = 2 MB per tile + buffers, comfortably inside ~16 MB VMEM.
-# Chained-methodology A/B on v5e (BENCH.md): 256x2048 = 62 ms for 100k x
-# 100k vs 79 ms at 512x1024 — keep the long-lane tile.
-_TQ = 256
-_TM = 2048
+# Query block and target tile; both powers of two (Triton's block rule).
+# Chosen by the H100 tile sweep in benchmarks/bench_kernels.py (PERF.md).
+_BQ = 32
+_BT = 128
+_NUM_WARPS = 4
+_NUM_STAGES = 2
 _PAD_VAL = 1e30
+_NO_COL = 2 ** 30
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _nn_kernel(x_ref, y_ref, idx_out, d2_out, best_d2, best_idx):
-    j = pl.program_id(1)
+def _nn_kernel(x0_ref, x1_ref, x2_ref, y0_ref, y1_ref, y2_ref,
+               idx_ref, d2_ref, *, bt: int, n_tiles: int):
+    x0, x1, x2 = x0_ref[...], x1_ref[...], x2_ref[...]        # (bq,)
+    col = jnp.arange(bt, dtype=jnp.int32)
 
-    @pl.when(j == 0)
-    def _():
-        best_d2[:] = jnp.full_like(best_d2, jnp.inf)
-        best_idx[:] = jnp.zeros_like(best_idx)
+    def body(t, carry):
+        # elementwise running min per (query, column) slot: no cross-lane
+        # reduction inside the loop; strict '<' keeps each slot's earliest
+        # tile, i.e. its lowest target index
+        best, bidx = carry                                    # (bq, bt)
+        start = pl.multiple_of(t * bt, bt)
+        sl = pl.ds(start, bt)
+        d0 = x0[:, None] - y0_ref[sl][None, :]
+        d1 = x1[:, None] - y1_ref[sl][None, :]
+        d2_ = x2[:, None] - y2_ref[sl][None, :]
+        d = d0 * d0 + d1 * d1 + d2_ * d2_
+        better = d < best
+        return (jnp.where(better, d, best),
+                jnp.where(better, (col + start)[None, :], bidx))
 
-    x = x_ref[:]  # (TQ, 3)
-    y = y_ref[:]  # (TM, 3)
-    # Exact per-coordinate distance tile on the VPU: three broadcast FMA
-    # passes over (TQ, TM).  (A K=3 dot_general looks like the MXU move but
-    # Mosaic lowers it to a lane-padded (TQ, TM, 128) broadcast — ~64 MB of
-    # scoped VMEM; this form keeps ~2 tiles live and has no |x|^2+|y|^2-2xy
-    # cancellation error.)
-    d2 = jnp.zeros((x.shape[0], y.shape[0]), jnp.float32)
-    for c in range(3):
-        diff = x[:, c][:, None] - y[:, c][None, :]
-        d2 = d2 + diff * diff
-
-    local_min = jnp.min(d2, axis=1, keepdims=True)          # (TQ, 1)
-    # first-index-of-min via masked iota-min: two plain VPU reductions.
-    # (jnp.argmin's tuple-reduce lowering also blows the scoped-VMEM stack.)
-    col = jax.lax.broadcasted_iota(jnp.int32, d2.shape, 1)
-    local_arg = jnp.min(jnp.where(d2 == local_min, col, jnp.int32(2**30)),
-                        axis=1, keepdims=True)
-    global_arg = local_arg + j * y.shape[0]
-
-    better = local_min < best_d2[:]
-    best_d2[:] = jnp.where(better, local_min, best_d2[:])
-    best_idx[:] = jnp.where(better, global_arg, best_idx[:])
-
-    @pl.when(j == pl.num_programs(1) - 1)
-    def _():
-        idx_out[:] = best_idx[:]
-        d2_out[:] = best_d2[:]
+    shape = (x0.shape[0], bt)
+    best, bidx = lax.fori_loop(
+        0, n_tiles, body,
+        (jnp.full(shape, jnp.inf, jnp.float32), jnp.zeros(shape, jnp.int32)))
+    # one reduction over the slots: the min, then the lowest index among
+    # the slots that hold it (same registers, so the equality is exact)
+    lmin = jnp.min(best, axis=1)
+    idx_ref[...] = jnp.min(jnp.where(best == lmin[:, None], bidx,
+                                     jnp.int32(_NO_COL)), axis=1)
+    d2_ref[...] = lmin
 
 
-@functools.partial(jax.jit, static_argnames=("tq", "tm", "interpret"))
-def _nn_pallas_2d(x: jnp.ndarray, y: jnp.ndarray, tq: int, tm: int,
+@functools.partial(jax.jit, static_argnames=("bq", "bt", "num_warps",
+                                             "num_stages", "interpret"))
+def _nn_pallas_2d(x, y, bq: int, bt: int, num_warps: int, num_stages: int,
                   interpret: bool):
     """(n, 3) x (m, 3) -> (idx (n,), d2 (n,)) via the tiled kernel."""
     n, m = x.shape[0], y.shape[0]
-    n_pad = _cdiv(n, tq) * tq
-    m_pad = _cdiv(m, tm) * tm
-    xp = jnp.pad(x.astype(jnp.float32), ((0, n_pad - n), (0, 0)))
-    yp = jnp.pad(y.astype(jnp.float32), ((0, m_pad - m), (0, 0)),
-                 constant_values=_PAD_VAL)
+    n_pad = _cdiv(n, bq) * bq
+    m_pad = _cdiv(m, bt) * bt
+    xt = jnp.pad(x.astype(jnp.float32), ((0, n_pad - n), (0, 0))).T
+    yt = jnp.pad(y.astype(jnp.float32), ((0, m_pad - m), (0, 0)),
+                 constant_values=_PAD_VAL).T                    # (3, m_pad)
 
-    grid = (n_pad // tq, m_pad // tm)
+    q_spec = pl.BlockSpec((bq,), lambda i: (i,))
+    t_spec = pl.BlockSpec((m_pad,), lambda i: (0,))
+    kernel = functools.partial(_nn_kernel, bt=bt, n_tiles=m_pad // bt)
     idx, d2 = pl.pallas_call(
-        _nn_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((tq, 3), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((tm, 3), lambda i, j: (j, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((tq, 1), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((tq, 1), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((n_pad, 1), jnp.int32),
-            jax.ShapeDtypeStruct((n_pad, 1), jnp.float32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((tq, 1), jnp.float32),
-            pltpu.VMEM((tq, 1), jnp.int32),
-        ],
+        kernel,
+        grid=(n_pad // bq,),
+        in_specs=[q_spec] * 3 + [t_spec] * 3,
+        out_specs=[q_spec, q_spec],
+        out_shape=[jax.ShapeDtypeStruct((n_pad,), jnp.int32),
+                   jax.ShapeDtypeStruct((n_pad,), jnp.float32)],
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=num_warps,
+                                           num_stages=num_stages),
         cost_estimate=pl.CostEstimate(
-            flops=2 * n_pad * m_pad * 3,
-            bytes_accessed=(n_pad * 3 + grid[0] * m_pad * 3 + 2 * n_pad) * 4,
-            transcendentals=0,
-        ),
+            flops=8 * n_pad * m_pad,
+            bytes_accessed=(3 * n_pad + 3 * m_pad * (n_pad // bq)
+                            + 2 * n_pad) * 4,
+            transcendentals=0),
         interpret=interpret,
-    )(xp, yp)
-    return idx[:n, 0], d2[:n, 0]
-
-
-def nn_indices_pallas(x: jnp.ndarray, y: jnp.ndarray,
-                      tq: int = _TQ, tm: int = _TM,
-                      interpret: bool | None = None):
-    """Nearest-neighbor indices via the tiled Pallas kernel.
-
-    x (..., n, 3) queries, y (..., m, 3) targets -> (..., n) int32.
-    Batch dims are vmapped over the 2-D kernel.  ``interpret=None`` auto
-    selects interpreter mode off-TPU (for CPU tests).
-    """
-    return nn_distances_pallas(x, y, tq=tq, tm=tm, interpret=interpret)[0]
+        name="nn_bruteforce",
+    )(xt[0], xt[1], xt[2], yt[0], yt[1], yt[2])
+    return idx[:n], d2[:n]
 
 
 def nn_distances_pallas(x: jnp.ndarray, y: jnp.ndarray,
-                        tq: int = _TQ, tm: int = _TM,
-                        interpret: bool | None = None):
-    """(indices, squared distances) of the 1-NN of each query."""
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    fn = functools.partial(_nn_pallas_2d, tq=tq, tm=tm, interpret=interpret)
-    batch_shape = x.shape[:-2]
-    for _ in batch_shape:
+                        bq: int = _BQ, bt: int = _BT,
+                        num_warps: int = _NUM_WARPS,
+                        num_stages: int = _NUM_STAGES,
+                        interpret: bool = False):
+    """(indices, squared distances) of the 1-NN of each query.
+
+    x (..., n, 3) queries, y (..., m, 3) targets -> ((..., n) int32,
+    (..., n) f32).  Batch dims are vmapped over the 2-D kernel (each batch
+    element becomes one more grid axis).  ``interpret=True`` runs the
+    kernel in the Pallas interpreter (CPU tests); it is never chosen
+    automatically.
+    """
+    fn = functools.partial(_nn_pallas_2d, bq=bq, bt=bt, num_warps=num_warps,
+                           num_stages=num_stages, interpret=interpret)
+    for _ in x.shape[:-2]:
         fn = jax.vmap(fn)
     return fn(x[..., :3], y[..., :3])
+
+
+def nn_indices_pallas(x: jnp.ndarray, y: jnp.ndarray, **kw) -> jnp.ndarray:
+    """1-NN indices via :func:`nn_distances_pallas` (same keywords)."""
+    return nn_distances_pallas(x, y, **kw)[0]

@@ -2,10 +2,10 @@
 
 The Gauss-Newton step needs one (k, k) solve per batch element with k = 3
 (dim=2) or k = 6 (dim=3) — cf. the reference's ``torch.linalg.inv`` at
-dICP/ICP.py:201.  XLA lowers ``jnp.linalg.solve`` on TPU to a generic
-batched LU with row pivoting (sequential inner loops, poor MXU/VPU
-utilization for k<=6).  These closed forms replace it with a fixed dag of
-elementwise multiplies/adds that XLA fuses into a handful of VPU ops:
+dICP/ICP.py:201.  XLA lowers ``jnp.linalg.solve`` to a generic batched LU
+with row pivoting (sequential inner loops, poor utilization for k<=6).
+These closed forms replace it with a fixed dag of elementwise
+multiplies/adds that XLA fuses into a handful of ops:
 
 * k = 3: Cramer's rule (adjugate / determinant) — ~40 flops.
 * k = 6: 2x2 block inversion via the Schur complement of the leading 3x3

@@ -2,12 +2,12 @@
 
 No reference counterpart (the reference registers raw clouds); required by
 the large-cloud configuration in BASELINE.json ("tiled Pallas kNN + voxel
-downsample").  TPU-friendly design: fixed output shape (n, 3) with a validity
+downsample").  Accelerator-friendly design: fixed output shape (n, 3) with a validity
 mask instead of a dynamic compaction — one centroid per occupied voxel in the
 leading slots, zeros elsewhere.  Zero rows + zero weights compose with the
 solver's padding convention (weight 0 rows are exact no-ops).
 
-Implementation is a sort + segment-mean: O(n log n) on the VPU, fully
+Implementation is a sort + segment-mean: O(n log n) on device, fully
 jittable and vmappable, no host sync.
 """
 

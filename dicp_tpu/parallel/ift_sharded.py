@@ -17,7 +17,7 @@ equations, sharding._map_sharded_body), so
 
 The backward therefore adds a CONSTANT number of collectives (k (k,k)-psums
 + one (m,c) psum for the target cotangent) — never O(iterations) — which
-tests/test_parallel_hlo.py pins on the compiled program.  Per VERDICT r2 #2;
+tests/test_parallel_hlo.py pins on the compiled program;
 the reference's backward is the unrolled torch graph
 (/root/reference/dICP/ICP.py:132, SURVEY.md §3.3).
 
@@ -117,8 +117,7 @@ def _local_nn_idx(cfg: ICPConfig, ps_t, tgt, axis=None):
     (sharding._map_sharded_body).  ``axis``: mesh axis name so the 50%
     certification guard fires on the GLOBAL fraction, matching the
     forward's gate."""
-    method = cfg.resolved_nn_method(ps_t.shape[0], tgt.shape[0],
-                                    jax.default_backend() == "cpu")
+    method = cfg.resolved_nn_method(ps_t.shape[0], tgt.shape[0])
     tgt_pts = lax.stop_gradient(tgt[:, :3])
     q = lax.stop_gradient(ps_t)
     if method == "cluster":
@@ -126,22 +125,15 @@ def _local_nn_idx(cfg: ICPConfig, ps_t, tgt, axis=None):
         from dicp_tpu.registration import _certified_gate
 
         cl_index = build_cluster_index(tgt_pts, cfg.cluster_group)
-        # fused=False is STRUCTURAL here (not a pending A/B): this runs
-        # inside the backward shard_map whose VMA-typed autodiff (lax.pcast,
-        # auto-psum of the replicated-target cotangent) requires
-        # check_vma=True, and pallas_call cannot declare varying-mesh-axes
-        # outputs under that checker.  The forward solve's fused kernel
-        # (cfg.sharded_fused, parallel/sharding.py) selects identical
-        # indices, so gradients are unaffected.
+        shards = 1 if axis is None else lax.axis_size(axis)
         idx, _, cert = cluster_nn(cl_index, q, probes=cfg.cluster_probes,
-                                  use_pallas=False, fused=False,
-                                  fixup=cfg.resolved_cluster_fixup(q.shape[0]))
+                                  fixup=cfg.shard_cluster_fixup(q.shape[0],
+                                                                shards))
         return idx, lax.stop_gradient(
             _certified_gate(cert, q.dtype, axis=axis))
     if method == "pallas":
-        from dicp_tpu.ops.pallas_knn import nn_indices_pallas
-
-        return nn_indices_pallas(q, tgt_pts), None
+        # same streaming brute force as the sharded forward
+        return knn.nn_argmin_stream(q, tgt_pts)[0], None
     return knn.nn_indices(q, tgt_pts), None
 
 

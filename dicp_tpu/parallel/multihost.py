@@ -1,18 +1,18 @@
-"""Multi-host (multi-process) execution: initialization, DCN-aware meshes,
-and host-local data placement.
+"""Multi-process execution: initialization, process-aware meshes, and
+process-local data placement.
 
-The reference is single-process (SURVEY.md §2.3); BASELINE.json's north star
-is ">=0.8 scaling efficiency at N>=2 hosts".  The design rule (and why it
-scales): put the **batch** axis on DCN (across hosts) — the batch-parallel
-solver needs ZERO data collectives (HLO-pinned in tests/test_parallel_hlo),
-so DCN's lower bandwidth is irrelevant — and the **map** axis on ICI (within
-a host's chips), where the per-GN-step psum of the 6x6 normal equations and
-the ring ppermutes ride the fast intra-slice interconnect.
+The reference is single-process (SURVEY.md §2.3).  The design rule: put the
+**batch** axis across processes — the batch-parallel solver needs ZERO data
+collectives (HLO-pinned in tests/test_parallel_hlo), so the slower link
+between processes is irrelevant — and the **map** axis within a process's
+devices, where the per-GN-step psum of the 6x6 normal equations and the
+ring ppermutes ride the fast local interconnect (NVLink on a four-card
+node).
 
-Launch recipe (documented in docs/multihost.md): run the SAME program on
-every host with `initialize_distributed()` first; JAX's runtime wires the
-processes into one logical device mesh.  On Cloud TPU pods the coordinator
-and process ids come from the environment automatically.
+Launch recipe (documented in docs/multihost.md): run the SAME program in
+every process with `initialize_distributed()` first, giving it an explicit
+coordinator address, process count and process id; JAX's runtime wires the
+processes into one logical device mesh.
 
 Everything here works unchanged on one process (initialize becomes a no-op
 and the hybrid mesh degrades to the local mesh), so single-host tests and
@@ -38,12 +38,11 @@ def initialize_distributed(
 ) -> bool:
     """Initialize JAX's multi-process runtime; returns True if distributed.
 
-    On Cloud TPU pod slices call with no arguments — the runtime discovers
-    the coordinator and process id from the TPU metadata/environment.  For
-    manual launches (e.g. two CPU/GPU hosts) pass all three, or set
-    ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``.
+    Pass all three of coordinator address, process count and process id,
+    or set ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
+    ``JAX_PROCESS_ID``.
 
-    No-op (returns False) when the configuration resolves to one process —
+    No-op (returns False) with no coordinator or with one process —
     so the same program runs unchanged on a single host or in tests.
     Idempotent: a second call is ignored.
     """
@@ -61,24 +60,19 @@ def initialize_distributed(
         return jax.process_count() > 1
 
     # CRITICAL: decide WITHOUT touching the XLA backend.  Anything that
-    # initializes it (jax.default_backend(), jax.devices(), ...) before
+    # initializes it (asking for the platform, jax.devices(), ...) before
     # jax.distributed.initialize() makes the latter raise — found by
     # actually launching two processes (tests/test_multiprocess.py).
     if coordinator_address is None:
-        # TPU-pod auto-discovery: the Cloud TPU runtime advertises the
-        # worker topology in the environment; multiple hostnames means a
-        # pod slice whose coordinator jax can discover on its own.
-        hosts = os.environ.get("TPU_WORKER_HOSTNAMES", "")
-        if "," not in hosts:
-            return False  # single process: nothing to initialize
-    elif num_processes == 1:
+        return False  # single process: nothing to initialize
+    if num_processes == 1:
         return False  # EXPLICIT single-process launch only.  A coordinator
         # address with num_processes unset still initializes (jax cluster
         # auto-detection fills the rest) — silently skipping here would
         # run N independent single-process jobs with wrong results.
 
-    # CPU hosts need a cross-process collectives backend (TPU/GPU bring
-    # their own); gloo is what XLA:CPU ships.  Decided from the requested
+    # CPU hosts need a cross-process collectives backend (the GPU brings
+    # NCCL); gloo is what XLA:CPU ships.  Decided from the requested
     # platform string — still without initializing the backend.
     platforms = (jax.config.jax_platforms
                  or os.environ.get("JAX_PLATFORMS", ""))
@@ -101,12 +95,12 @@ def make_pod_mesh(
     map_per_host: Optional[int] = None,
     axis_names: Tuple[str, str] = ("batch", "map"),
 ) -> Mesh:
-    """DCN-aware 2-D mesh: ``batch`` across hosts (DCN), ``map`` within a
-    host's chips (ICI).
+    """Process-aware 2-D mesh: ``batch`` across processes, ``map`` within a
+    process's devices.
 
-    ``map_per_host``: chips per host assigned to the map axis (default: all
-    local chips — the whole host works on one large cloud, batch parallelism
-    across hosts).  Must divide the local device count; the remainder
+    ``map_per_host``: devices per process assigned to the map axis
+    (default: all local devices — each process works on one large cloud,
+    batch parallelism across processes).  Must divide the local device count; the remainder
     multiplies into the batch axis.
 
     Single-process fallback: the familiar local mesh with all devices on
@@ -125,11 +119,10 @@ def make_pod_mesh(
     if n_hosts > 1:
         from jax.experimental import mesh_utils
 
-        # Hybrid mesh: outer (DCN) axis = hosts, inner (ICI) = local split.
-        # Granule = PROCESS, not slice: a multi-host pod slice is one ICI
-        # slice (every device reports slice_index 0), so the slice-granule
-        # default raises — found by an actual 2-process launch
-        # (tests/test_multiprocess.py).
+        # Hybrid mesh: outer axis = processes, inner = local split.
+        # Granule = PROCESS, not slice: every device can report slice_index
+        # 0, so the slice-granule default raises — found by an actual
+        # 2-process launch (tests/test_multiprocess.py).
         try:
             devices = mesh_utils.create_hybrid_device_mesh(
                 mesh_shape=(n_local // map_per_host, map_per_host),

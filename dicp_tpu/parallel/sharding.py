@@ -2,8 +2,8 @@
 large-cloud registration.
 
 The reference is strictly single-device (SURVEY.md §2.3: no distributed
-anything); these are the new first-class TPU components that scale its two
-parallelism concepts across a pod slice:
+anything); these are the new first-class components that scale its two
+parallelism concepts across the devices of a mesh:
 
 * **batch parallelism** (the reference's leading batch dim, dICP/ICP.py:85)
   -> scan pairs sharded over the ``batch`` mesh axis.  The solver is purely
@@ -15,7 +15,7 @@ parallelism concepts across a pod slice:
   for its point shard against the replicated target and accumulates its
   partial normal equations; the ONLY cross-device traffic per Gauss-Newton
   step is the psum of the (6, 6) J^T W J block and (6,) J^T W e vector —
-  42 floats per step, riding ICI.
+  42 floats per step, over NVLink on one node.
 """
 
 from __future__ import annotations
@@ -99,7 +99,7 @@ def ring_nn(x: jnp.ndarray, y_shard: jnp.ndarray, axis: str) -> jnp.ndarray:
     the visiting shard into a running (best-distance, best-row) accumulator.
     This is the point-cloud analogue of ring attention (SURVEY.md §5): the
     full map never needs to fit on one chip, and the per-step transfer
-    (m_loc * c floats, neighbor-to-neighbor) rides the ICI ring while the
+    (m_loc * c floats, neighbor-to-neighbor) rides the device ring while the
     (n_loc, m_loc) distance tile is computed.
 
     Ties across shards resolve by ring order (this device's own shard
@@ -173,14 +173,7 @@ def _map_sharded_body(cfg: ICPConfig, source_shard, weight_shard, target, T_init
     if target_sharded:
         method = "ring"
     else:
-        method = cfg.resolved_nn_method(source_shard.shape[0], target.shape[0],
-                                        jax.default_backend() == "cpu")
-    if method == "pallas":
-        # The brute-force Pallas kernel inside a shard_map body is the same
-        # unvalidated-on-chip combination the cluster branch pins away from
-        # (code-review r3); the XLA dense path is safe and the (n/K, m)
-        # distance tile is K x smaller per device anyway.
-        method = "dense"
+        method = cfg.resolved_nn_method(source_shard.shape[0], target.shape[0])
     if method == "cluster":
         # index over the replicated target, built ONCE per device outside
         # the GN loop (identical on every device — pure local compute, no
@@ -203,18 +196,12 @@ def _map_sharded_body(cfg: ICPConfig, source_shard, weight_shard, target, T_init
         if method == "ring":
             nn6 = ring_nn(ps_t, target, axis)
         elif method == "cluster":
-            # cfg.sharded_fused (None = cluster_nn's own backend auto): the
-            # round-5 A/B validated the v2 fused kernel inside shard_map —
-            # exact parity on the virtual mesh and on chip
-            # (benchmarks/exp_shardmap_fused.py); set False to pin the XLA
-            # candidate path.
             idx, _, cert = cluster_nn(cl_index, ps_t,
                                       probes=cfg.cluster_probes,
-                                      use_pallas=False,
-                                      fused=cfg.sharded_fused,
                                       order=qord,
-                                      fixup=cfg.resolved_cluster_fixup(
-                                          source_shard.shape[0]))
+                                      fixup=cfg.shard_cluster_fixup(
+                                          source_shard.shape[0],
+                                          lax.axis_size(axis), n_real))
             nn6 = jnp.take(target, idx, axis=0)
             # raw per-point certificate; the 50% fallback guard
             # (registration._certified_gate) is applied GLOBALLY below by
@@ -222,8 +209,10 @@ def _map_sharded_body(cfg: ICPConfig, source_shard, weight_shard, target, T_init
             # would double the per-iteration collective count
             valid = cert.astype(dtype)
         elif method == "pallas":
-            from dicp_tpu.ops.pallas_knn import nn_indices_pallas
-            idx = nn_indices_pallas(ps_t, tgt_pts)
+            # the XLA streaming form of the tiled brute force: no
+            # pallas_call inside shard_map (the per-shard (n/K, m) problem
+            # is K x smaller anyway)
+            idx, _ = knn.nn_argmin_stream(ps_t, tgt_pts)
             nn6 = jnp.take(target, idx, axis=0)
         else:
             idx = knn.nn_indices(ps_t, tgt_pts)
@@ -416,7 +405,7 @@ def map_sharded_fn(mesh: Mesh, cfg: ICPConfig, axis: str = "map",
                    n_real: Optional[int] = None):
     """The jitted SPMD callable behind :func:`register_map_sharded` /
     :func:`register_ring_sharded` — exposed so tests can ``.lower()`` it and
-    pin the compiled collective counts (BENCH.md's scaling claims).
+    pin the compiled collective counts.
 
     lru_cached on the hashable key (mesh, cfg, axis, target_sharded,
     n_real): without it every call built a fresh closure and a fresh
@@ -424,24 +413,18 @@ def map_sharded_fn(mesh: Mesh, cfg: ICPConfig, axis: str = "map",
     missed on every scan of an odometry loop — seconds of recompilation per
     call (code-review r3)."""
     def body(src_s, w_s, tgt, t_init):
-        # pin MXU precision: the per-shard distance/Jacobian matmuls run
-        # outside register()'s pinned scope
+        # pin f32 matmul precision: the per-shard distance/Jacobian matmuls
+        # run outside register()'s pinned scope
         with jax.default_matmul_precision("float32"):
             return _map_sharded_body(cfg, src_s, w_s, tgt, t_init,
                                      target_sharded=target_sharded, axis=axis,
                                      n_real=n_real)
 
     tgt_spec = P(axis) if target_sharded else P()
-    # check_vma=False: pallas_call (the fused cluster kernel) cannot declare
-    # varying-mesh-axes on its outputs, so the replication checker rejects
-    # it inside shard_map.  The body's replication structure is unchanged
-    # and stays pinned by tests/test_parallel_hlo.py (exactly one fused
-    # psum, payload sizes) + the virtual-mesh parity tests.
     return jax.jit(jax.shard_map(
         body, mesh=mesh,
         in_specs=(P(axis), P(axis), tgt_spec, P()),
         out_specs=(P(), P(), P(), P()),
-        check_vma=False,
     ))
 
 

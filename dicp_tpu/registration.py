@@ -1,6 +1,6 @@
-"""Functional core: batched differentiable Gauss-Newton ICP on TPU.
+"""Functional core: batched differentiable Gauss-Newton ICP.
 
-This is the TPU-native redesign of the reference's iteration loop
+This is the accelerator-native redesign of the reference's iteration loop
 (dICP/ICP.py:46-303).  Key architectural differences from the reference:
 
 * The whole solve is one jitted XLA program.  The reference's Python ``for``
@@ -166,17 +166,16 @@ def _make_corr_fn(cfg: ICPConfig, source, target, C0, r0):
     detached), values flow through the gather into ``target``."""
     n, m = source.shape[-2], target.shape[-2]
     dtype = source.dtype
-    method = cfg.resolved_nn_method(n, m, jax.default_backend() == "cpu")
+    method = cfg.resolved_nn_method(n, m)
     if method == "cluster":
         from dicp_tpu.ops.cluster_knn import (build_cluster_index, cluster_nn,
                                               query_order)
 
         if target.shape[0] == 1:
             # single huge cloud (the common large-scale case): no vmap
-            # (keeps the optional Pallas block-search kernel usable)
             index = build_cluster_index(
                 lax.stop_gradient(target[0, :, :3]), cfg.cluster_group)
-            ps0 = jnp.einsum("ij,pj->pi", C0[0], source[0, :, :3])                 + r0[0][None, :]
+            ps0 = jnp.einsum("ij,pj->pi", C0[0], source[0, :, :3]) + r0[0][None, :]
             qord = query_order(index, lax.stop_gradient(ps0))
 
             def corr(ps_t):
@@ -193,13 +192,8 @@ def _make_corr_fn(cfg: ICPConfig, source, target, C0, r0):
             lax.stop_gradient(target[..., :3]))
 
         def corr(ps_t):
-            # fused=None (auto: v2 kernel on TPU): validated under vmap on
-            # chip 2026-08-19 (benchmarks/exp_vmap_fused.py — bit-identical
-            # selection vs the XLA path at B=8 x 60k, and ~6% faster);
-            # use_pallas=False keeps the slower v1 kernel out.
             idx, _, cert = jax.vmap(
                 lambda ix, q: cluster_nn(ix, q, probes=cfg.cluster_probes,
-                                         use_pallas=False,
                                          fixup=cfg.resolved_cluster_fixup(n)))(
                 index, lax.stop_gradient(ps_t))
             return (knn.gather_rows(target, idx),
@@ -224,9 +218,9 @@ def _normal_equations(J_w, res_w, chunk: int = 4096):
 
     A flat einsum accumulates P sequential partial sums; at P ~ 3e5 rows the
     f32 rounding noise in b reaches ~1e-4 in the Gauss-Newton step — the
-    solve then oscillates at that floor instead of converging (measured at
-    100k points on chip: pt2pt transform error plateaus at 1e-4 even with
-    EXACT correspondences).  Summing within chunks and then across chunks
+    solve then oscillates at that floor instead of converging (at 100k
+    points the pt2pt transform error plateaus at 1e-4 even with EXACT
+    correspondences).  Summing within chunks and then across chunks
     bounds the error ~O(sqrt) instead of O(P)."""
     N, P, k = J_w.shape
     if P <= chunk:
@@ -341,7 +335,7 @@ def _gn_step(cfg: ICPConfig, source, target, w_init, C, r, key, corr_fn):
     A = A + _damping(cfg, A) * jnp.eye(k, dtype=dtype)
     if cfg.solve_method == "closed":
         # A is SPD (J^T W J + lambda I): pivot-free closed-form solve fuses to
-        # VPU elementwise ops instead of XLA's sequential batched LU.
+        # elementwise ops instead of XLA's sequential batched LU.
         from dicp_tpu.ops.smallsolve import solve_spd
 
         delta_k = -solve_spd(A, b)                        # (N, k)
@@ -598,8 +592,8 @@ def register(
         key = jax.vmap(lambda i: jax.random.fold_in(key, i))(
             jnp.arange(source.shape[0]))
 
-    # TPU MXU default precision is bf16 for f32 operands, which biases the
-    # distance matrices and the accumulated rotation chain by ~1e-2 — pin
+    # f32 matmuls may run in TF32 (or bf16) by default, which biases the
+    # distance matrices and the accumulated rotation chain by ~1e-3 — pin
     # full-precision matmuls for everything traced inside the solver.
     with jax.default_matmul_precision("float32"):
         if cfg.batch_chunk is not None and source.shape[0] > cfg.batch_chunk:
@@ -615,7 +609,7 @@ def _chunked_over_batch(call, chunk, source, target, T_init, weight, key):
     Bitwise-identical to one big call: batch elements are independent, and
     (when a PRNG key is used) Gumbel noise streams are derived per GLOBAL
     batch element in :func:`register` before chunking, so element i draws
-    the same noise either way.  Keeps every chunk at the solver's measured
+    the same noise either way.  Keeps every chunk at the solver's
     throughput knee (see ``ICPConfig.batch_chunk``).  The batch is
     edge-padded to a chunk multiple and results sliced back."""
     N = source.shape[0]
@@ -657,30 +651,6 @@ def _register_impl(source, target, T_init, weight, cfg, key):
                               cfg.anderson_m, 1e-8, cfg.anderson_cap)
 
     source, target, weight, C, r = _preprocess(cfg, source, target, T_init, weight)
-
-    from dicp_tpu.ops.fused_gn import fused_eligible, fused_gn_solve
-
-    if fused_eligible(cfg, source, target, key):
-        # Whole-solve Pallas mega-kernel (one program for the entire
-        # iteration loop; see ops/fused_gn).  Interpret mode makes the CPU
-        # test lane exercise the same kernel code.
-        w_pt = weight[:, ::3] if cfg.icp_type == "pt2pt" else weight
-        Cv, rv, conv, iters, ratio, wsave, cost = fused_gn_solve(
-            source[..., :3], target, w_pt, C, r, cfg,
-            interpret=jax.default_backend() == "cpu")
-        if cfg.icp_type == "pt2pt":
-            wsave = jnp.repeat(wsave, 3, axis=-1)
-        N = source.shape[0]
-        dtype = source.dtype
-        pc = jnp.einsum("nij,npj->npi", Cv, source[..., :3]) + rv[:, None, :]
-        T_ts = jnp.broadcast_to(jnp.eye(4, dtype=dtype), (N, 4, 4))
-        T_ts = T_ts.at[:, :3, :3].set(Cv).at[:, :3, 3].set(rv)
-        return ICPResult(
-            pc=pc, T=T_ts,
-            costs=cost[:, None, None],
-            deltas=jnp.zeros((N, 1, 6, 1), dtype=dtype),
-            weights=wsave[:, None, :, None],
-            converged=conv, iterations=iters, matched_ratio=ratio)
 
     # Gumbel soft-NN has its own dense path in _gn_step — building the hard
     # corr closure (incl. a cluster index + query sort) would be dead ops

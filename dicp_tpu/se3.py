@@ -1,9 +1,9 @@
-"""SE(3) / SO(3) Lie-group math for TPU-native ICP.
+"""SE(3) / SO(3) Lie-group math for the ICP solvers.
 
 Closed-form Rodrigues / Baker-Campbell-Hausdorff expressions instead of the
 reference's generic ``torch.matrix_exp`` (dICP/ICP.py:210) — a dense matrix
 exponential is a Padé/scaling-squaring iteration that XLA cannot fuse well,
-while Rodrigues is a handful of VPU elementwise ops.  This module also
+while Rodrigues is a handful of elementwise ops.  This module also
 replaces the external ``pylgmath`` dependency the reference test-suite uses
 for ground truth (tests/test_ICP.py:11-13): ``vec2tran``/``tran2vec`` follow
 the same convention, T = [[exp(phi^), J(phi) rho], [0, 1]] for xi = [rho, phi].
@@ -21,8 +21,8 @@ import functools
 import jax
 import jax.numpy as jnp
 
-# These 3x3/3x1 matmuls are never MXU-bound, but on TPU the default bf16
-# matmul pass truncates them to ~3 decimal digits — enough to corrupt any
+# These 3x3/3x1 matmuls are tiny, but a reduced-precision default (TF32 on
+# the GPU) truncates them to ~3 decimal digits — enough to corrupt any
 # transform-error metric computed outside the solvers' pinned-precision
 # scope.  Pin full precision at every matmul in this module.
 _mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)

@@ -6,8 +6,8 @@ cloud, dICP/ICP.py:132); this implements the retrieved technique paper
 [Maken, Ramos, Ott, arXiv:1907.09133]: each iteration samples a mini-batch
 of k source points, finds THEIR nearest neighbors only, and takes a
 stochastic step on the se(3) pose.  Per-iteration cost drops from O(n·m)
-to O(k·m) — the regime where the correspondence search dominates
-(BENCH.md: ~6-7 ms of the 8.15 ms per-GN-iteration at 100k points).
+to O(k·m) — the regime where the correspondence search dominates the
+GN iteration at 100k points.
 
 Three update rules on the mini-batch normal equations / gradient:
 
@@ -26,7 +26,7 @@ ill-conditioned (the flattest direction carries 0.1-rad error at ~1e-5
 cost) and first-order updates stall — use ``'gn'`` there (1e-15 on the
 same scene in ≤60 iterations).
 
-TPU-first structure (mirrors dicp_tpu.registration / gicp):
+Structure (mirrors dicp_tpu.registration / gicp):
 - one jitted program; fixed-trip ``lax.scan`` driver (static shapes, and
   reverse-mode differentiable by construction — the mini-batch indices are
   PRNG-keyed constants, so gradients flow through the gathered values with
@@ -151,7 +151,7 @@ def _cluster_nn_fn(tgt, group, probes, fixup):
 
     def nn_fn(p):
         idx, _, cert = cluster_nn(index, lax.stop_gradient(p), probes=probes,
-                                  use_pallas=False, fused=False, fixup=fixup)
+                                  fixup=fixup)
         return idx, cert
     return nn_fn
 

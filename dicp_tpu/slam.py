@@ -3,8 +3,7 @@ pose-graph back-end.
 
 No reference counterpart (the reference is a single-pair solver,
 ``/root/reference/dICP/ICP.py:46``); this composes the repo's three
-previously-independent capabilities into the full SLAM loop VERDICT r4
-called the capability frontier:
+previously-independent capabilities into the full SLAM loop:
 
 1. **Front-end** — :func:`dicp_tpu.mapping.map_step` scan-to-map odometry
    (fused world-frame voxel map, damped constant-velocity prediction).
@@ -39,7 +38,7 @@ capacity-bounded (it slides along the trajectory and old geometry is
 LRU-evicted, so drift persists at a revisit) — with an effectively
 unbounded map, scan-to-map self-anchors and no closures are needed.
 
-TPU-first shape discipline: anchors are fixed-shape (n, 6) world-frame
+Shape discipline: anchors are fixed-shape (n, 6) world-frame
 snapshots (same row count as a scan), so the two-stage closure solve
 compiles ONCE and serves every closure; detection is host-side arithmetic
 on (A, 3) anchor positions (fetched once per anchor at storage time) plus
@@ -321,7 +320,10 @@ def _edge_residual_norms(poses: jnp.ndarray, edges_i: jnp.ndarray,
     def r(ti, tj, tm):
         return se3.tran2vec(se3.tran_inv(tm) @ se3.tran_inv(ti) @ tj)
 
-    res = jax.vmap(r)(poses[edges_i], poses[edges_j], t_meas)
+    # full f32: these norms set the IRLS weights, and a TF32 4x4 chain
+    # perturbs them by ~1e-3
+    with jax.default_matmul_precision("float32"):
+        res = jax.vmap(r)(poses[edges_i], poses[edges_j], t_meas)
     return jnp.linalg.norm(res, axis=-1)
 
 

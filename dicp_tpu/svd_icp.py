@@ -52,13 +52,12 @@ def _kabsch(ps: jnp.ndarray, qs: jnp.ndarray, w: jnp.ndarray,
     torch.svd (dICP/ICP.py:566-570): the optimal rotation is the top
     eigenvector of a symmetric 4x4 built from the cross-covariance, found by
     a fixed-count power iteration — pure batched matvecs, no LAPACK-style
-    iterative SVD (one (1,3,3) jnp.linalg.svd costs ~29 ms on TPU; this whole
-    routine is microseconds).  Proper rotations (det +1) by construction, so
+    iterative SVD).  Proper rotations (det +1) by construction, so
     no determinant correction branch is needed.
 
-    Matmul precision is pinned HERE (not only in the public solver): on TPU
-    a bare einsum runs the MXU in bf16, flooring the recovered rotation at
-    ~1.4e-4 (measured on chip) no matter how many power iterations run.
+    Matmul precision is pinned HERE (not only in the public solver): a bare
+    einsum at reduced precision (TF32 on the GPU) floors the recovered
+    rotation near 1e-4 no matter how many power iterations run.
     """
     with jax.default_matmul_precision("float32"):
         return _kabsch_impl(ps, qs, w, power_iters)
@@ -111,9 +110,9 @@ def _kabsch_impl(ps, qs, w, power_iters):
                        [0.0, 1.0, 0.0, -1.0]], dtype=dtype)
     seeds = seeds / jnp.linalg.norm(seeds, axis=-1, keepdims=True)
     q = jnp.broadcast_to(seeds, (ps.shape[0], 4, 4))
-    # Unrolled on purpose: a lax.scan/fori_loop here costs ~0.5 ms of
-    # sequencing overhead PER STEP on TPU; unrolled 4x4 matvecs fuse into one
-    # straight-line block.  Normalize EVERY step with a zero guard (repeated
+    # Unrolled on purpose: a lax.scan/fori_loop here pays sequencing
+    # overhead per step; unrolled 4x4 matvecs fuse into one straight-line
+    # block.  Normalize EVERY step with a zero guard (repeated
     # tiny-eigenvalue matvecs underflow f32 otherwise).
     for _ in range(power_iters):
         q = jnp.einsum("nij,nsj->nsi", Ks, q)
@@ -149,8 +148,8 @@ def pt2pt_svd_icp(
     """
     with jax.default_matmul_precision("float32"):
         # jitted: calling eagerly would trace lax.while_loop/scan with the
-        # clouds baked in as program constants — ~300x slower per call on the
-        # remote-TPU path than passing them as proper arguments.
+        # clouds baked in as program constants, far slower per call than
+        # passing them as proper arguments.
         return _svd_icp_impl(source, target, T_init, weight, max_iterations,
                             tolerance, trim_dist, differentiable)
 

@@ -2,7 +2,7 @@
 
 The reference's only timing artifact is a wall-clock print inside one test
 (tests/test_ICP_inputs.py:79-103, SURVEY.md §5).  Here: a context manager
-around ``jax.profiler`` for per-kernel TPU traces (viewable in TensorBoard /
+around ``jax.profiler`` for per-kernel device traces (viewable in TensorBoard /
 xprof) and a steady-state benchmark helper that handles compile warmup and
 device synchronization correctly.
 """
@@ -35,28 +35,13 @@ def _block(out):
         lambda x: x.block_until_ready() if hasattr(x, "block_until_ready") else x, out)
 
 
-def benchmark(fn: Callable, n: int = 10, warmup: int = 1,
-              force_wallclock: bool = False) -> dict:
+def benchmark(fn: Callable, n: int = 10, warmup: int = 1) -> dict:
     """Steady-state timing of ``fn()`` (compile excluded).
 
-    Returns {mean_s, min_s, compile_s, n}.
-
-    Refuses to run on non-CPU backends unless ``force_wallclock=True``:
-    remote-attached TPU runtimes acknowledge dispatches without awaiting
-    device completion and deduplicate identical dispatches, so
-    ``block_until_ready`` wall-clock measures the *client*, not the chip
-    (silently wrong in both directions — see BENCH.md).  Use
-    :func:`dicp_tpu.utils.timing.chained_rate` for device-bound numbers.
+    Every call ends in ``block_until_ready`` on all outputs, so the host
+    clock spans the device work, not just the enqueue.  Returns
+    {mean_s, min_s, median_s, compile_s, n}.
     """
-    from dicp_tpu.utils.timing import device_timing_is_trustworthy
-
-    if not device_timing_is_trustworthy() and not force_wallclock:
-        raise RuntimeError(
-            "benchmark() times block_until_ready wall-clock, which does not "
-            "reflect device execution on this backend (remote/async "
-            "dispatch).  Use dicp_tpu.utils.timing.chained_rate (chained "
-            "lax.scan + host fetch + overhead differencing), or pass "
-            "force_wallclock=True to measure the client anyway.")
     if warmup < 1:
         # warmup=0 would fold XLA compilation into the first timed
         # iteration while reporting compile_s ~ 0 — silently wrong in a
@@ -76,6 +61,7 @@ def benchmark(fn: Callable, n: int = 10, warmup: int = 1,
     return {
         "mean_s": sum(times) / n,
         "min_s": min(times),
+        "median_s": sorted(times)[n // 2],
         "compile_s": compile_s,
         "n": n,
     }

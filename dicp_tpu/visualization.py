@@ -1,6 +1,6 @@
 """Point-cloud plotting helpers (parity with dICP/visualization.py:5-43).
 
-matplotlib is imported lazily so headless / TPU-pod environments that never
+matplotlib is imported lazily so headless environments that never
 plot don't pay the import.
 """
 

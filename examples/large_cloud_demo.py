@@ -1,17 +1,16 @@
 """Full-resolution large-cloud registration with self-computed normals.
 
-Demonstrates the 100k-point serving workflow (BENCH.md: ~30 ms/registration
-on one v5e chip at transform error ~1e-7):
+Demonstrates the 100k-point serving workflow (transform error ~1e-7):
 
 1. estimate surface normals for the map with the kernel-weighted PCA path
-   (no (n, n) matrix, no top-k — one fat-K MXU matmul over cluster-index
+   (no (n, n) matrix, no top-k — one fat-K matmul over cluster-index
    candidates);
 2. register a 100k-point scan against the 100k-point map at FULL resolution
    (no voxel downsampling) — the Hilbert cluster index is built once per
    solve and amortized over the Gauss-Newton iterations;
 3. check the exactness certificate of the final correspondences.
 
-Run:  python examples/large_cloud_demo.py        (TPU or CPU)
+Run:  python examples/large_cloud_demo.py        (GPU or CPU)
 """
 
 import sys
@@ -45,8 +44,8 @@ def main():
     print(f"device: {jax.devices()[0]}")
     map_pts = make_scene()
 
-    # ground-truth offset, applied in host f64 (a device matmul would run
-    # the MXU in bf16 and corrupt the data — see BENCH.md)
+    # ground-truth offset, applied in host f64 (a device matmul at reduced
+    # default precision would corrupt the data)
     xi = np.array([0.2, -0.1, 0.05, 0.01, -0.02, 0.03])
     T_st = np.asarray(se3.vec2tran(jnp.asarray(xi)), np.float64)
     scan = (map_pts @ T_st[:3, :3].T + T_st[:3, 3]).astype(np.float32)
@@ -73,8 +72,8 @@ def main():
           f"converged={bool(res.converged[0])}")
 
     # 3. exactness accounting on the final correspondences (transform
-    #    applied on HOST — a bare device matmul would run bf16 and add
-    #    ~2 cm of noise to the residuals, see BENCH.md)
+    #    applied on HOST — a bare device matmul at reduced precision would
+    #    add centimetres of noise to the residuals)
     index = jax.jit(lambda t: build_cluster_index(t, 128))(target3)
     aligned = jnp.asarray(
         (scan.astype(np.float64) @ T_pred[:3, :3].T + T_pred[:3, 3])
@@ -86,4 +85,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from dicp_tpu.utils.device import enable_compile_cache
+
+    enable_compile_cache()
     main()

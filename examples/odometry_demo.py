@@ -5,7 +5,7 @@ scans as KITTI-style .bin files, then run
 
   disk -> native C++ preprocess (range filter + voxel hash-grid)
        -> prefetched host->device transfer (ScanDataset)
-       -> batched pt2pl registration on the TPU (normals estimated on device)
+       -> batched pt2pl registration on the device (normals estimated there)
        -> pose-graph refinement with a loop closure
        -> ATE against the ground truth.
 
@@ -93,4 +93,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from dicp_tpu.utils.device import enable_compile_cache
+
+    enable_compile_cache()
     main()

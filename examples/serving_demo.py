@@ -11,9 +11,8 @@ a stream, and `dicp_tpu.pipeline.stream_odometry` keeps the device busy by
   * seeding every dispatch with the constant-velocity prior (warm start —
     default on), and
   * optionally shipping scans as packed (n, 4) uint16 (8 bytes/point,
-    dequantized on device): on a remote-attached chip the h2d transfer,
-    not the solve, bounds the raw-scan serving rate (BENCH.md: 42 ->
-    62.6 fps at 60k points/scan).
+    dequantized on device) for when the h2d transfer, not the solve,
+    bounds the raw-scan serving rate.
 
 Run:  python examples/serving_demo.py  (uses whatever jax.devices() offers)
 """
@@ -86,4 +85,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from dicp_tpu.utils.device import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -35,15 +35,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-# honor JAX_PLATFORMS=cpu even when a TPU plugin is installed (the env var
-# alone does not reliably beat plugin registration; see tests/conftest.py)
+# honor JAX_PLATFORMS (e.g. cpu) before any backend initializes
 if os.environ.get("JAX_PLATFORMS"):
     jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
 
 import jax.numpy as jnp
 import numpy as np
 
-from dicp_tpu import ICPConfig, se3
+from dicp_tpu import ICPConfig, backend, se3
 from dicp_tpu.odometry import ate
 from dicp_tpu.slam import rebuild_map, slam_odometry
 
@@ -76,10 +75,9 @@ def make_scans(laps, per_lap=32, n=1200, r=6.0, noise=0.04, R=5.0, seed=3):
         idx = np.flatnonzero(d < r)
         sel = rng.choice(idx, n, replace=len(idx) < n)
         # f64 under JAX_ENABLE_X64 on CPU (matches tests/test_slam.py);
-        # always f32 on accelerators — XLA:TPU has no f64 LU for the dense
-        # pose-graph solve, and the serving path is f32 anyway
+        # always f32 on accelerators — the serving path is f32
         dtype = (np.float64 if (jnp.zeros(()).dtype == jnp.float64
-                                and jax.default_backend() == "cpu")
+                                and backend.platform() == "cpu")
                  else np.float32)
         scans.append(((world[sel] - t) @ Rm
                       + rng.normal(scale=noise, size=(n, 3))).astype(dtype))
@@ -138,4 +136,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from dicp_tpu.utils.device import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -1,11 +1,11 @@
 // Host-side point-cloud runtime for dicp_tpu: fast I/O and preprocessing
-// that feeds the TPU compute path.
+// that feeds the device compute path.
 //
 // The reference has no native components (SURVEY.md §2.2) and no data loader
 // at all — clouds arrive as in-memory torch tensors.  A production LiDAR
 // odometry engine spends real wall-clock on the host side of the pipeline:
 // reading scans from disk, voxel-downsampling, range filtering.  Doing this
-// in Python costs more than the TPU solve itself; this library keeps the
+// in Python can cost more than the device solve itself; this library keeps the
 // host side off the critical path (the device-side jittable voxel filter in
 // dicp_tpu/ops/voxel.py remains for clouds already resident in HBM).
 //

@@ -7,7 +7,7 @@ readiness layer must be *runnable*, not just dryrun-compiled):
 1. ``initialize_distributed`` from env (coordinator/num_processes/process_id)
    — must run BEFORE any backend touch;
 2. ``make_pod_mesh``: hybrid (batch x map) mesh, host boundary on the outer
-   (DCN) axis;
+   (across-process) axis;
 3. ``host_local_batch``: each process contributes only ITS slice of the
    global batch (no host materializes the full batch);
 4. ``register_batch_sharded`` over the pod mesh — the global convergence
@@ -40,7 +40,7 @@ from dicp_tpu.parallel.multihost import (host_local_batch,  # noqa: E402
 
 def main_posegraph(pid: int):
     """Multi-host pose-graph odometry (BASELINE north star): keyframes
-    partitioned over the DCN (``batch``) axis of the pod mesh, so the
+    partitioned over the across-process (``batch``) axis of the pod mesh, so the
     Schur-reduced separator psum crosses the process boundary (gloo).
     Checks exact agreement with the single-device dense back-end plus an
     ATE bound against the ground-truth trajectory."""
@@ -75,7 +75,7 @@ def main_posegraph(pid: int):
     mesh = make_pod_mesh(map_per_host=2)          # (batch=4, map=2)
     # the partition axis must span hosts: batch rows 0-1 are process 0,
     # rows 2-3 process 1 (asserted in main_batch) — the separator-system
-    # psum therefore rides DCN
+    # psum therefore crosses processes
     procs_on_axis = {d.process_index for d in np.asarray(mesh.devices)[:, 0]}
     assert len(procs_on_axis) == 2, "partition axis does not cross hosts"
 
@@ -110,11 +110,11 @@ def main():
 
     mesh = make_pod_mesh(map_per_host=2)      # (batch=4, map=2)
     assert dict(mesh.shape) == {"batch": 4, "map": 2}, dict(mesh.shape)
-    # host boundary must sit on the outer (DCN) axis: each mesh row is
+    # host boundary must sit on the outer (across-process) axis: each mesh row is
     # one process's devices
     for row in np.asarray(mesh.devices):
         assert len({d.process_index for d in row}) == 1, \
-            "map (ICI) axis crosses a host boundary"
+            "map (within-process) axis crosses a host boundary"
 
     base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
     scan = np.load(os.path.join(base, "points_scan.npy")).astype(np.float32)

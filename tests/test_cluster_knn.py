@@ -262,12 +262,11 @@ def test_normals_cluster_matches_dense():
 
 
 def test_pallas_block_search_parity():
-    """The fused Pallas block-search kernel (interpret mode on CPU) must
-    reproduce the XLA candidate-matrix path bit-for-bit (same diff-form
-    arithmetic, same strict-'<' tie rule)."""
-    from dicp_tpu.ops.cluster_knn import (_block_select, _candidate_d2,
-                                          _sorted_blocks)
-    from dicp_tpu.ops.pallas_cluster import block_search_pallas
+    """The streaming candidate scan (the XLA block search) must reproduce
+    the flat candidate-matrix argmin bit-for-bit (same diff-form
+    arithmetic, lowest-offset tie rule), and the public entry agrees."""
+    from dicp_tpu.ops.cluster_knn import (_block_select, _candidate_argmin_scan,
+                                          _candidate_d2, _sorted_blocks)
 
     rng = np.random.default_rng(21)
     y = jnp.asarray(rng.uniform(-10, 10, size=(4000, 3)).astype(np.float32))
@@ -275,18 +274,21 @@ def test_pallas_block_search_parity():
     ix = build_cluster_index(y, 128)
     xb, inv, n = _sorted_blocks(ix, x)
     bsel, P = _block_select(ix, xb, 8)
-    best_k, row_k = block_search_pallas(ix.points, xb, bsel, interpret=True)
+    best_s, row_s = _candidate_argmin_scan(ix, xb, bsel)
     d2, pos = _candidate_d2(ix, xb, bsel)
     j = jnp.argmin(d2, axis=-1)
     best_x = jnp.take_along_axis(d2, j[..., None], -1)[..., 0]
     row_x = jnp.take_along_axis(pos, j, -1)
-    np.testing.assert_allclose(np.asarray(best_k), np.asarray(best_x),
+    np.testing.assert_allclose(np.asarray(best_s), np.asarray(best_x),
                                rtol=1e-6)
-    np.testing.assert_array_equal(np.asarray(row_k), np.asarray(row_x))
+    np.testing.assert_array_equal(np.asarray(row_s), np.asarray(row_x))
 
-    # and through the public entry (forced kernel, interpret via CPU auto)
-    idx_p, d2_p, cert_p = cluster_nn(ix, x, probes=8, use_pallas=False)
+    # and through the public entry: certified answers are the dense ones
+    idx_p, d2_p, cert_p = cluster_nn(ix, x, probes=8)
     assert idx_p.shape == (2000,)
+    ref_idx, _ = _dense_nn(x, y)
+    c = np.asarray(cert_p)
+    np.testing.assert_array_equal(np.asarray(idx_p)[c], ref_idx[c])
 
 
 def test_degenerate_clouds():
@@ -365,77 +367,71 @@ def test_fixup_uncertified_exactness():
 
 
 def test_fused_search_parity():
-    """The v2 fused kernel (XLA-batched candidate gather + VMEM kernel with
-    in-kernel certification bound) must reproduce the XLA path exactly for
-    best/rows (same arithmetic, same tie rule) and conservatively for the
-    bound (different f32 association order; both bounds stay sound)."""
-    from dicp_tpu.ops.cluster_knn import (_FUSED_QBLOCK, _block_select,
+    """The XLA search pieces at a realistic block layout: the streaming
+    candidate scan and the per-query bound must agree with brute force —
+    every query whose found distance is within its bound is the dense
+    answer, and fixup closes the rest."""
+    from dicp_tpu.ops.cluster_knn import (_block_select,
                                           _candidate_argmin_scan,
-                                          _query_bounds, _sorted_blocks)
-    from dicp_tpu.ops.pallas_cluster import fused_search_pallas
+                                          _query_bounds, _sorted_blocks,
+                                          _unsort)
 
     rng = np.random.default_rng(5)
     y = jnp.asarray(rng.uniform(-30, 30, (20000, 3)).astype(np.float32))
     x = jnp.asarray(rng.uniform(-30, 30, (4096, 3)).astype(np.float32))
     index = build_cluster_index(y, 128)
+    ref_idx, ref_d2 = _dense_nn(x, y)
 
-    xb, inv, n = _sorted_blocks(index, x, qblock=_FUSED_QBLOCK)
+    xb, inv, n = _sorted_blocks(index, x)
     bsel, P = _block_select(index, xb, 16)
-    best_k, rows_k, bound_k = fused_search_pallas(
-        index.points, index.centers, index.radius, xb, bsel, interpret=True)
-    best_x, rows_x = _candidate_argmin_scan(index, xb, bsel)
-    bound_x = _query_bounds(index, xb, bsel)
-    np.testing.assert_allclose(np.asarray(best_k), np.asarray(best_x),
-                               rtol=1e-6)
-    np.testing.assert_array_equal(np.asarray(rows_k), np.asarray(rows_x))
-    np.testing.assert_allclose(np.asarray(bound_k), np.asarray(bound_x),
-                               rtol=1e-3)
+    best, rows = _candidate_argmin_scan(index, xb, bsel)
+    bound = _query_bounds(index, xb, bsel)
+    idx_s = np.asarray(_unsort(index.order[rows], inv, n))
+    cert_s = np.asarray(_unsort(best <= bound, inv, n))
+    assert cert_s.mean() > 0.5
+    np.testing.assert_array_equal(idx_s[cert_s], ref_idx[cert_s])
+    np.testing.assert_allclose(np.asarray(_unsort(best, inv, n))[cert_s],
+                               ref_d2[cert_s], rtol=1e-5)
 
-    # certificate soundness through the public fused path: certified answers
+    # certificate soundness through the public path: certified answers
     # match dense brute force; fixup closes the rest
-    idx_f, _, c_f = cluster_nn(index, x, probes=16, fused=True)
-    ref_idx, _ = _dense_nn(x, y)
+    idx_f, _, c_f = cluster_nn(index, x, probes=16)
     cf = np.asarray(c_f)
     np.testing.assert_array_equal(np.asarray(idx_f)[cf], ref_idx[cf])
-    idx_all, _, c_all = cluster_nn(index, x, probes=16, fused=True,
-                                   fixup=x.shape[0])
+    idx_all, _, c_all = cluster_nn(index, x, probes=16, fixup=x.shape[0])
     assert bool(jnp.all(c_all))
     np.testing.assert_array_equal(np.asarray(idx_all), ref_idx)
 
-    # vmapped fused path (the batched-solver usage)
-    idx_v, _, _ = jax.vmap(
-        lambda q: cluster_nn(index, q, probes=16, fused=True))(
+    # vmapped path (the batched-solver usage)
+    idx_v, _, _ = jax.vmap(lambda q: cluster_nn(index, q, probes=16))(
         x.reshape(4, 1024, 3))
     assert idx_v.shape == (4, 1024)
 
 
 def test_fused_topk_parity():
-    """The fused k-NN extraction kernel (VMEM scratch, k argmin/mask passes)
-    must reproduce the XLA _topk_small path exactly: same distances, same
-    rows (same tie rule), same certificates."""
+    """Cluster k-NN (the XLA _topk_small extraction) against dense
+    brute-force k-NN: certified rows carry exactly the k smallest
+    distances, in ascending order, for several (k, probes)."""
     from dicp_tpu.ops.cluster_knn import cluster_knn as _cknn
 
     rng = np.random.default_rng(21)
     y = jnp.asarray(rng.uniform(-30, 30, (20_000, 3)).astype(np.float32))
     x = jnp.asarray(rng.uniform(-30, 30, (2_048, 3)).astype(np.float32))
     index = build_cluster_index(y, 128)
-    for k, probes in ((16, 16), (4, 32), (1, 16)):
-        idx_f, d2_f, c_f = _cknn(index, x, k=k, probes=probes, fused=True)
-        idx_x, d2_x, c_x = _cknn(index, x, k=k, probes=probes, fused=False)
-        np.testing.assert_allclose(np.asarray(d2_f), np.asarray(d2_x),
-                                   rtol=1e-6)
-        np.testing.assert_array_equal(np.asarray(idx_f), np.asarray(idx_x))
-        np.testing.assert_array_equal(np.asarray(c_f), np.asarray(c_x))
-
-    # certified rows match dense brute-force k-NN distances
-    k = 8
-    idx_f, d2_f, c_f = _cknn(index, x, k=k, probes=32, fused=True)
     d2 = np.sum((np.asarray(x)[:, None, :] - np.asarray(y)[None, :, :]) ** 2,
                 axis=-1)
-    ref = np.sort(d2, axis=1)[:, :k]
-    cf = np.asarray(c_f)
-    assert cf.mean() > 0.5
-    np.testing.assert_allclose(np.asarray(d2_f)[cf], ref[cf], rtol=1e-5)
+    order = np.argsort(d2, axis=1, kind="stable")
+    for k, probes in ((16, 16), (4, 32), (1, 16), (8, 32)):
+        idx_c, d2_c, c_c = _cknn(index, x, k=k, probes=probes)
+        cf = np.asarray(c_c)
+        assert cf.any()
+        if (k, probes) == (8, 32):
+            assert cf.mean() > 0.5
+        ref = np.take_along_axis(d2, order[:, :k], axis=1)
+        np.testing.assert_allclose(np.asarray(d2_c)[cf], ref[cf], rtol=1e-5)
+        assert np.all(np.diff(np.asarray(d2_c), axis=1) >= 0)
+        np.testing.assert_array_equal(np.asarray(idx_c)[cf],
+                                      order[:, :k][cf])
 
 
 def test_fixup_tie_rule_duplicate_points():

@@ -1,13 +1,12 @@
-"""Parity tests for the whole-solve fused Pallas GN kernel (ops/fused_gn).
+"""Parity tests for the histories-off f32 early-exit solve.
 
-The kernel replicates the non-differentiable early-exit while driver
-(registration._run_while semantics, mirroring dICP/ICP.py:132-303) with
-histories off.  Each test solves the same batch with ``fused_small=True``
-(the kernel, interpret mode on CPU) and ``fused_small=False`` (the XLA
-while driver) and compares every ICPResult field.  Deliberate deviations
-(documented in ops/fused_gn): difference-form distances (f32 roundoff near
-ties) and tile-level instead of batch-level early exit (frozen elements
-drift O(1e-18)) — both far below the 1e-5 comparison tolerance.
+The inference path that small-pair serving uses is the XLA ``while``
+driver (registration._run_while, mirroring dICP/ICP.py:132-303) in f32
+with histories off.  Each test solves one batch that way and compares
+every ICPResult field with an f64 solve of the SAME inputs through the
+fixed-trip ``scan`` driver — a different driver and twice the precision.
+Scenes have unique exact matches, so both converge decisively at the same
+iteration; the 1e-5 comparison tolerance sits far above f32 resolution.
 """
 
 import numpy as np
@@ -17,7 +16,6 @@ import jax.numpy as jnp
 
 from dicp_tpu.config import ICPConfig
 from dicp_tpu.registration import register
-from dicp_tpu.ops.fused_gn import fused_eligible
 
 
 def _make_batch(B, n, m, dim, normals, seed=0):
@@ -58,12 +56,15 @@ def _make_batch(B, n, m, dim, normals, seed=0):
 
 
 def _compare(cfg_base, src, tgt, weight=None, tol=1e-5):
-    cfg_f = cfg_base.with_(fused_small=True)
-    cfg_x = cfg_base.with_(fused_small=False)
+    """f32 while driver (histories off) vs an f64 scan-driver reference."""
+    cfg_f = cfg_base.with_(driver="while", collect_histories=False)
+    cfg_r = cfg_base.with_(driver="scan", collect_histories=False)
+    f64 = (lambda a: None if a is None else jnp.asarray(a, jnp.float64))
     T_init = jnp.broadcast_to(jnp.eye(4, dtype=src.dtype),
                               (src.shape[0], 4, 4))
     rf = register(src, tgt, T_init, weight, cfg_f)
-    rx = register(src, tgt, T_init, weight, cfg_x)
+    rx = register(f64(src), f64(tgt), f64(T_init), f64(weight), cfg_r)
+    assert rf.T.dtype == jnp.float32 and rx.T.dtype == jnp.float64
     np.testing.assert_allclose(rf.T, rx.T, atol=tol, rtol=0)
     np.testing.assert_allclose(rf.pc, rx.pc, atol=10 * tol, rtol=0)
     np.testing.assert_array_equal(np.asarray(rf.converged),
@@ -77,7 +78,7 @@ def _compare(cfg_base, src, tgt, weight=None, tol=1e-5):
 
 
 # tolerance 1e-5: decisively above the f32 fixed-point noise floor (~1e-7)
-# so the convergence-crossing iteration is identical on both paths (random
+# so the convergence-crossing iteration is identical in f32 and f64 (random
 # normals give a nonzero-residual fixed point where delta_norm can hover).
 BASE = ICPConfig(differentiable=False, driver="while", collect_histories=False,
                  max_iterations=40, tolerance=1e-5, nn_method="dense")
@@ -122,52 +123,37 @@ def test_soft_weights_forced_while():
 
 
 def test_reference_pair_accuracy():
-    """Fused kernel recovers the reference test-pair transform (f32)."""
+    """The f32 solve recovers the reference test-pair transform."""
     import os.path as osp
     d = osp.join(osp.dirname(__file__), "data")
     src = np.load(osp.join(d, "points_scan.npy"))[None, :, :3]
     tgt = np.load(osp.join(d, "points_map.npy"))[None]
+    # tolerance 1e-4: f32 rounding in the first large steps leaves the 5th
+    # step at ~3e-5 in f32 against ~3e-6 in f64; 1e-4 makes the crossing
+    # decisive in both (the quadratic tail is then below 1e-6)
     cfg = BASE.with_(icp_type="pt2pl", dim=2, loss_name="huber",
-                     loss_metric=1.0, trim_dist=5.0, max_iterations=60)
+                     loss_metric=1.0, trim_dist=5.0, max_iterations=60,
+                     tolerance=1e-4)
     src8 = jnp.asarray(np.repeat(src, 8, axis=0), jnp.float32)
     tgt8 = jnp.asarray(np.repeat(tgt, 8, axis=0), jnp.float32)
     rf, rx = _compare(cfg, src8, tgt8, tol=3e-5)
-    # both must land on the reference fixed point (BENCH.md: f32 floor ~e-6)
+    # both must land on the reference fixed point (f32 floor ~1e-6)
     from dicp_tpu import se3
     err = se3.tran2vec(rf.T[0] @ jnp.linalg.inv(rx.T[0]))
     assert float(jnp.linalg.norm(err)) < 1e-5
 
 
-def test_eligibility_gate():
-    src, tgt, T_init = _make_batch(2, 16, 16, dim=3, normals=True)
-    key = jax.random.PRNGKey(0)
-    ok = BASE.with_(icp_type="pt2pl")
-    assert fused_eligible(ok.with_(fused_small=True), src, tgt, None)
-    # auto never fuses on CPU
-    if jax.default_backend() == "cpu":
-        assert not fused_eligible(ok, src, tgt, None)
-    assert not fused_eligible(ok.with_(fused_small=False), src, tgt, None)
-    assert not fused_eligible(ok.with_(fused_small=True), src, tgt, key)
-    assert not fused_eligible(
-        ok.with_(fused_small=True, collect_histories=True), src, tgt, None)
-    assert not fused_eligible(
-        ok.with_(fused_small=True, driver="scan", differentiable=True),
-        src, tgt, None)
-    big = jnp.zeros((2, 300, 3), jnp.float32)
-    assert not fused_eligible(ok.with_(fused_small=True), big, tgt, None)
-
-
 def test_batch_padding():
-    # B=5 with bt=8 exercises the edge-replication padding path
+    # odd batch size with one early-converging element per batch
     src, tgt, _ = _make_batch(5, 30, 30, dim=2, normals=True, seed=7)
     cfg = BASE.with_(icp_type="pt2pl", dim=2, loss_name="huber")
     _compare(cfg, src, tgt)
 
 
 def test_trim_loss_custom_steepness():
-    # loss_name='trim' with a NON-default tanh_steepness: the kernel must
+    # loss_name='trim' with a NON-default tanh_steepness: the solve must
     # thread cfg.tanh_steepness into the soft trim LOSS weight, not just the
-    # trim_dist gate (code-review r3: a hard-coded 5.0 diverged here)
+    # trim_dist gate
     src, tgt, _ = _make_batch(4, 40, 40, dim=2, normals=False, seed=9)
     cfg = BASE.with_(icp_type="pt2pt", dim=2, differentiable=True,
                      loss_name="trim", loss_metric=2.0, trim_dist=None,
@@ -179,8 +165,8 @@ def test_trim_loss_custom_steepness():
                                   None])
 @pytest.mark.parametrize("icp_type,dim", [("pt2pl", 3), ("pt2pt", 2)])
 def test_loss_zoo_parity(loss, icp_type, dim):
-    # every IRLS loss through the kernel, smooth variants (the serving
-    # config), vs the XLA while driver
+    # every IRLS loss, smooth variants (the serving config), f32 while
+    # driver vs the f64 scan driver
     src, tgt, _ = _make_batch(3, 48, 64, dim=dim,
                               normals=(icp_type == "pt2pl"), seed=17)
     cfg = BASE.with_(icp_type=icp_type, dim=dim, differentiable=True,

@@ -452,7 +452,7 @@ def test_collect_histories_off(source_np, target_np, driver):
 
 
 def test_icp_class_tpu_kwargs(planes_scene):
-    """TPU-native config knobs pass through the drop-in ICP constructor."""
+    """Solver config knobs pass through the drop-in ICP constructor."""
     from dicp_tpu import se3
     from dicp_tpu.api import ICP
 

@@ -2,13 +2,13 @@
 
 Spawns TWO real OS processes, each a separate JAX process with 4 virtual
 CPU devices, joined through ``jax.distributed`` (gloo collectives) into one
-8-device job — the closest a single machine gets to an N-host pod.  The
+8-device job — the closest a single machine gets to an N-host cluster.  The
 workers (tests/_mp_worker.py) run a batch-sharded registration over the
-DCN-aware pod mesh with per-host data feeding and compare shards against a
+process-aware pod mesh with per-host data feeding and compare shards against a
 single-device reference.
 
 This is what the round-2 verdict called out: `jax.distributed.initialize`
-+ DCN-aware mesh existed only as a dryrun; here the path actually RUNS
++ process-aware mesh existed only as a dryrun; here the path actually RUNS
 with process_count() == 2.  (It caught two real bugs on first launch:
 backend initialization before distributed-init, and slice-granule hybrid
 mesh construction — see parallel/multihost.py comments.)

@@ -1,7 +1,7 @@
 """Multi-device sharding tests on the 8-device virtual CPU mesh
 (conftest sets xla_force_host_platform_device_count=8).
 
-These are the new TPU-first components with no reference counterpart
+These are the new multi-device components with no reference counterpart
 (SURVEY.md §2.3): batch sharding must be bit-equivalent to single-device,
 and the map-sharded psum Gauss-Newton must match the dense solver."""
 
@@ -240,25 +240,84 @@ def test_map_sharded_cluster_matches_dense(source_np, target_np):
 
 
 def test_map_sharded_fused_parity(source_np, target_np):
-    """The v2 fused cluster kernel INSIDE the shard_map body (round-5
-    unpin, VERDICT r4 #6): forcing cfg.sharded_fused=True (interpret-mode
-    Pallas on this CPU mesh) must reproduce the pinned XLA candidate
-    path exactly — pose, convergence, and iteration count."""
+    """The XLA cluster search INSIDE the shard_map body with the in-solver
+    fixup off (cluster_fixup=0, so only certified matches enter) must
+    reproduce the brute-force (dense) sharded solve — pose, convergence,
+    and iteration count."""
     mesh = make_mesh((1, 8))
     base = ICPConfig(icp_type="pt2pl", differentiable=False,
                      max_iterations=50, tolerance=1e-10, dim=2,
-                     trim_dist=5.0, loss_name="huber", loss_metric=1.0,
-                     nn_method="cluster", cluster_group=16, cluster_probes=8)
+                     trim_dist=5.0, loss_name="huber", loss_metric=1.0)
     res_x = register_map_sharded(mesh, jnp.asarray(source_np[:, :3]),
                                  jnp.asarray(target_np),
-                                 cfg=base.with_(sharded_fused=False))
+                                 cfg=base.with_(nn_method="dense"))
     res_f = register_map_sharded(mesh, jnp.asarray(source_np[:, :3]),
                                  jnp.asarray(target_np),
-                                 cfg=base.with_(sharded_fused=True))
+                                 cfg=base.with_(nn_method="cluster",
+                                                cluster_group=16,
+                                                cluster_probes=8,
+                                                cluster_fixup=0))
     np.testing.assert_allclose(np.asarray(res_f.T), np.asarray(res_x.T),
                                atol=1e-12)
     assert float(res_f.iterations) == float(res_x.iterations)
     assert bool(res_f.converged) == bool(res_x.converged)
+
+
+@pytest.mark.parametrize("n_local,shards,n_real,fixup,want", [
+    (25_000, 4, None, None, 1562),     # 100k over four: not 25_000 // 64
+    (12_500, 8, None, None, 1562),
+    (25_000, 4, 99_998, None, 1562),   # padded: the real count decides
+    (1_000, 4, None, None, 256),
+    (200, 8, None, None, 200),         # never more than the shard holds
+    (25_000, 4, None, 300, 300),       # an explicit budget is kept
+])
+def test_shard_fixup_budget_is_the_whole_problems(n_local, shards, n_real,
+                                                  fixup, want):
+    """Each shard gets the single-device budget of the whole query set, so
+    the sharded certified set does not shrink as the shard count grows."""
+    cfg = ICPConfig(cluster_fixup=fixup)
+    assert cfg.shard_cluster_fixup(n_local, shards, n_real) == want
+    n = n_real if n_real is not None else n_local * shards
+    assert want == min(cfg.resolved_cluster_fixup(n), n_local)
+
+
+def test_map_sharded_ift_default_fixup_is_shard_invariant():
+    """Three planes, 32k points over 8 shards, default cluster fixup: every
+    shard covers its uncertified queries as the one-device solve does, so
+    the sharded IFT gradient is the one-device gradient (a per-shard
+    n_local // 64 budget gave cosine 0.997 here)."""
+    from dicp_tpu.ift import register_ift
+    from dicp_tpu.parallel import register_map_sharded_ift
+
+    n = 32_768
+    rng = np.random.default_rng(0)
+    normals = np.eye(3)[[2, 0, 1]]
+    pts, nrm = [], []
+    for k in range(3):
+        uv = rng.uniform(-20, 20, size=(n // 3 + 1, 2))
+        basis = np.eye(3)[[i for i in range(3) if i != np.argmax(normals[k])]]
+        pts.append(uv @ basis + normals[k] * (2.0 + k))
+        nrm.append(np.tile(normals[k], (n // 3 + 1, 1)))
+    target = np.hstack([np.vstack(pts)[:n], np.vstack(nrm)[:n]])
+    T = np.asarray(se3.vec2tran(jnp.asarray([0.2, -0.1, 0.05, 0.01, -0.02,
+                                             0.03])))
+    src = jnp.asarray((target[:, :3] @ T[:3, :3].T + T[:3, 3])
+                      .astype(np.float32))
+    tgt = jnp.asarray(target.astype(np.float32))
+    cfg = ICPConfig(icp_type="pt2pl", differentiable=True, max_iterations=30,
+                    tolerance=1e-5, dim=3, trim_dist=2.0, loss_name="huber",
+                    loss_metric=1.0, collect_histories=False)
+    assert cfg.resolved_nn_method(n, n) == "cluster"
+    mesh = make_mesh((1, 8))
+    eye = jnp.eye(4, dtype=jnp.float32)
+    g8 = np.asarray(jax.jit(jax.grad(lambda s, t: jnp.sum(
+        register_map_sharded_ift(mesh, s, t, cfg=cfg).T)))(src, tgt),
+        np.float64)
+    g1 = np.asarray(jax.jit(jax.grad(lambda s, t: jnp.sum(register_ift(
+        s[None], t[None], eye[None], None, cfg).T)))(src, tgt), np.float64)
+    assert np.all(np.isfinite(g8)) and np.any(g8 != 0)
+    cos = np.sum(g8 * g1) / (np.linalg.norm(g8) * np.linalg.norm(g1))
+    assert cos > 0.99999, cos
 
 
 def test_map_sharded_ift_gradients_match_unrolled(source_np, target_np):

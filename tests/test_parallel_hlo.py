@@ -1,6 +1,6 @@
 """Compiled-HLO collective-count assertions (VERDICT r2 #7).
 
-BENCH.md's scaling claims ("zero data collectives for batch sharding",
+The scaling claims ("zero data collectives for batch sharding",
 "one fused psum per map-sharded GN step") were prose; these tests pin them
 against the ACTUAL compiled SPMD programs on the 8-virtual-device mesh, so
 a regression that introduces an all-gather or extra all-reduce fails CI.
